@@ -1,0 +1,187 @@
+"""Lane-format ("ATF" fmt 2) rANS engine in plain PyTorch: S lanes in
+lockstep over one shared byte stream (docs/FORMAT.md section 2).
+
+Counterpart of ans_tpu/ops/lane_codec.py.  Besides the host-side
+helpers of the engine (`lane_steps`, `encode_totals`) this module holds
+the PLAIN VERSIONS of the three CUDA kernels: each computes the same
+function from the same inputs as its kernel, with ordinary tensor ops.
+The kernels' wrappers (ops/encode.py, ops/place.py, ops/decode.py) run
+them for tensors on the CPU, and chip_smoke.py holds each kernel against
+its plain version on the card.
+
+Layout: the symbol at position p = t*S + lane is handled by `lane` at
+step t, so per-position arrays are staged (T, S).  u32 quantities travel
+as i32 bit patterns and the plain versions compute in int64: torch has
+no unsigned shifts, compares or division for 32-bit integers.
+
+Byte rounds (six per step): renorm round j holds the j-th renorm byte
+read by every lane needing more than j (lanes ascending), then exception
+rounds likewise.  Within a round a lane's byte sits at round_base +
+rank, where rank is the exclusive prefix of the round's mask over lanes.
+Renorm and exception bytes are read high-first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .tables import A_L, EncDevice, SearchDevice
+
+NROUNDS = 6  # 3 renorm + 3 exception byte rounds per step
+
+
+def lane_steps(n: int, S: int) -> int:
+    """Steps per lane T = ceil(n / S)."""
+    return -(-n // S) if n else 0
+
+
+def _valid(T: int, S: int, n: int, device) -> torch.Tensor:
+    pos = (torch.arange(T, device=device, dtype=torch.int64)[:, None] * S
+           + torch.arange(S, device=device, dtype=torch.int64)[None, :])
+    return pos < n
+
+
+def _round_masks(packed: torch.Tensor, nb: torch.Tensor, n: int):
+    """(rc, nb) gated by validity, and the (T, S, 6) round masks."""
+    T, S = packed.shape
+    valid = _valid(T, S, n, packed.device)
+    rc = torch.where(valid, (packed.to(torch.int64) >> 24) & 3, 0)
+    nbv = torch.where(valid, nb.to(torch.int64), 0)
+    j = torch.arange(3, device=packed.device)
+    masks = torch.cat([rc[..., None] > j, nbv[..., None] > j], dim=-1)
+    return rc, nbv, masks
+
+
+def encode_totals(packed: torch.Tensor, nb: torch.Tensor, n: int):
+    """Per-(step, round) byte offsets from the scan's packed words.
+
+    Returns (round_base (T*6,) i64: the stream offset of every
+    (step, round) pair, total 0-d i64 tensor: the stream length)."""
+    _, _, masks = _round_masks(packed, nb, n)
+    flat = masks.sum(dim=1).reshape(-1)
+    incl = torch.cumsum(flat, 0)
+    return incl - flat, flat.sum()
+
+
+# --------------------------------------------------------------------------
+# plain versions of the kernels
+# --------------------------------------------------------------------------
+
+def encode_scan_plain(syms: torch.Tensor, n: int, table: EncDevice):
+    """Plain version of K1 (csrc/encode_scan.cu): the reverse rANS scan.
+
+    syms: (T, S) i32 mapped symbol ids.  Returns (packed (T, S) i32,
+    states (S,) i32).  packed = r0 | r1<<8 | r2<<16 | rc<<24, where byte
+    slot i holds the low byte of the state after the first i conditional
+    renorm shifts (emitted or not) and rc counts the emitted bytes."""
+    T, S = syms.shape
+    dev = syms.device
+    log2m = table.log2m
+    words = table.words.to(torch.int64) & 0xFFFFFFFF
+    freq, base = words[:, 0], words[:, 1]
+    lanes = torch.arange(S, device=dev, dtype=torch.int64)
+    state = torch.full((S,), A_L, dtype=torch.int64, device=dev)
+    packed = torch.empty((T, S), dtype=torch.int32, device=dev)
+    for t in range(T - 1, -1, -1):
+        valid = t * S + lanes < n
+        s = torch.where(valid, syms[t].to(torch.int64), 0)
+        f = freq[s].clamp(min=1)
+        ub = f << (31 - log2m)
+        st = state
+        word = torch.zeros_like(st)
+        rc = torch.zeros_like(st)
+        for i in range(3):
+            e = valid & (st >= ub)
+            word |= (st & 0xFF) << (8 * i)
+            rc += e
+            st = torch.where(e, st >> 8, st)
+        q = st // f
+        new = (q << log2m) + (st - q * f) + base[s]
+        state = torch.where(valid, new, state)
+        packed[t] = (word | (rc << 24)).to(torch.int32)
+    return packed, state.to(torch.int32)
+
+
+def place_plain(packed: torch.Tensor, nb: torch.Tensor, excw: torch.Tensor,
+                n: int, round_base: torch.Tensor, total: int) -> torch.Tensor:
+    """Plain version of K2 (csrc/place.cu): count-then-place of the
+    packed words and exception bytes into the fmt-2 stream.
+
+    packed/nb/excw: (T, S) i32 (excw holds the three low bytes of each
+    value, lowest first); round_base: (T*6,) i64 from encode_totals.
+    Returns the (total,) u8 stream."""
+    T, S = packed.shape
+    rc, nbv, masks = _round_masks(packed, nb, n)
+    mi = masks.to(torch.int64)
+    rank = torch.cumsum(mi, dim=1) - mi
+    pos = round_base.reshape(T, 1, NROUNDS) + rank
+    j = torch.arange(3, device=packed.device)
+    # round j reads emission slot rc-1-j (renorm) / nb-1-j (exception)
+    rsh = 8 * (rc[..., None] - 1 - j).clamp(min=0)
+    esh = 8 * (nbv[..., None] - 1 - j).clamp(min=0)
+    rbytes = (packed.to(torch.int64)[..., None] >> rsh) & 0xFF
+    ebytes = (excw.to(torch.int64)[..., None] >> esh) & 0xFF
+    byte = torch.cat([rbytes, ebytes], dim=-1)
+    stream = torch.zeros(total, dtype=torch.uint8, device=packed.device)
+    stream[pos[masks]] = byte[masks].to(torch.uint8)
+    return stream
+
+
+def decode_search_plain(stream: torch.Tensor, states: torch.Tensor,
+                        table: SearchDevice, n: int, T: int) -> torch.Tensor:
+    """Plain version of K3 (csrc/decode_search.cu): lockstep decode with
+    the symbol found by `torch.searchsorted` over the present symbols'
+    bases (the kernel runs a bitwise binary search instead).
+
+    stream: (L,) u8 concatenated payload; states: (S,) i32 final encoder
+    states.  Returns (T, S) i32 bit patterns of the decoded u32 values
+    (positions >= n hold don't-care values).  Raises ValueError when a
+    read would pass the end of the stream (a corrupt blob)."""
+    S = states.numel()
+    dev = states.device
+    log2m, M = table.log2m, table.frame_size
+    NR, NE = table.NR, table.NE
+    bases = table.bases.to(torch.int64)
+    search = bases[:-1].contiguous()
+    high = table.high.to(torch.int64) & 0xFFFFFFFF
+    nbt = table.nb.to(torch.int64)
+    L = stream.numel()
+    # one zero byte past the end takes the (flagged) out-of-range reads
+    src = torch.cat([stream.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    lanes = torch.arange(S, device=dev, dtype=torch.int64)
+    j = torch.arange(3, device=dev)
+    thr = torch.tensor([A_L >> (8 * k) for k in range(NR)],
+                       dtype=torch.int64, device=dev)
+    state = states.to(torch.int64) & 0xFFFFFFFF
+    cursor = torch.zeros((), dtype=torch.int64, device=dev)
+    overrun = torch.zeros((), dtype=torch.bool, device=dev)
+    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    for t in range(T):
+        valid = t * S + lanes < n
+        slot = state & (M - 1)
+        m = torch.searchsorted(search, slot, right=True) - 1
+        lb, ub = bases[m], bases[m + 1]
+        st0 = torch.where(valid, (ub - lb) * (state >> log2m) + slot - lb,
+                          state)
+        rc = torch.where(valid, (st0[:, None] < thr).sum(1), 0)
+        nb = torch.where(valid, nbt[m], 0)
+        masks = torch.cat([rc[:, None] > j[:NR], nb[:, None] > j[:NE]], 1)
+        mi = masks.to(torch.int64)
+        tot = mi.sum(0)
+        pos = cursor + (torch.cumsum(tot, 0) - tot) + torch.cumsum(mi, 0) - mi
+        overrun |= (masks & (pos >= L)).any()
+        byte = src[torch.where(masks, pos, L).clamp(max=L)]
+        st = st0
+        for k in range(NR):
+            st = torch.where(masks[:, k], (st << 8) | byte[:, k], st)
+        low = torch.zeros_like(st)
+        for k in range(NR, NR + NE):
+            low = torch.where(masks[:, k], (low << 8) | byte[:, k], low)
+        out[t] = ((high[m] + low) & 0xFFFFFFFF).to(torch.int32)
+        state = st
+        cursor = cursor + tot.sum()
+    if bool(overrun):
+        raise ValueError("corrupt lane stream: a read passes the end of "
+                         "the stream")
+    return out

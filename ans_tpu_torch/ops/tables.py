@@ -1,0 +1,228 @@
+"""Encoder/decoder tables for the lane-format rANS engine.
+
+A NumPy copy of the table builders in ans_tpu/ops/tables.py (held equal
+to them by tests/test_torch_host.py) plus `to_device`, which lays a table
+out as the device tensors the CUDA kernels and their plain versions read.
+Only the value-cumulative slot layout is ported; the frequency-grouped
+layout (ans_tpu/ops/grouped.py) is recognised by `use_grouped_layout`
+and refused with NotImplementedError until its kernels (K5, K6) exist.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ans_tpu.constants import A_KM_LOG2, A_MAX_FRAME_LOG2
+
+# fmt A lower bound: state in [A_L, 256*A_L)
+A_L = 1 << A_KM_LOG2
+
+# FORMAT CONSTANT (ans_tpu/ops/grouped.py): alphabets with this many live
+# symbols use the frequency-grouped slot layout
+GROUPED_MIN_SIGMA = (1 << 13) + 1
+
+
+def use_grouped_layout(nfreqs) -> bool:
+    """Pure function of the prelude frequency vector (both coder sides
+    must agree)."""
+    return int(np.count_nonzero(np.asarray(nfreqs))) >= GROUPED_MIN_SIGMA
+
+
+def require_ungrouped(nfreqs) -> None:
+    """Raise NotImplementedError for a frame that selects the grouped
+    layout; every other frame fits the ported kernels (the pivot-search
+    decoder takes sigma <= 2^13)."""
+    if use_grouped_layout(nfreqs):
+        raise NotImplementedError(
+            f"{int(np.count_nonzero(np.asarray(nfreqs)))} live symbols "
+            "select the frequency-grouped slot layout, which waits for its "
+            "kernels K5/K6 (ROADMAP queue 1 item 6, queue 2)")
+
+
+def max_renorm_rounds(log2m: int) -> int:
+    """Renorm byte reads per decode step: 2 while M <= 2^16, 3 beyond.
+    Encoder placement and decoder reads must agree on this bound."""
+    return 2 if log2m <= 16 else 3
+
+
+@dataclass(frozen=True)
+class EncTable:
+    """Per-symbol encode table (index = mapped symbol id).  magic
+    implements exact division by freq d via a 32-bit multiply-high
+    (Granlund-Montgomery round-up variant, Hacker's Delight 10-10): with
+    l = ceil(log2 d) and magic = floor(2^(32+l)/d) + 1 - 2^32,
+        t = mulhi32(x, magic); q = (t + ((x - t) >> 1)) >> (l - 1)
+    is exact for every u32 x and d >= 2; d == 1 is selected around.  The
+    kernel derives l and the renorm bound from freq itself."""
+
+    freq: np.ndarray  # u32 (sigma,)
+    base: np.ndarray  # u32 (sigma,) cumulative freq
+    magic: np.ndarray  # u32 (sigma,) GM round-up multiplier (0 for d=1)
+    frame_size: int
+    log2m: int
+
+
+@dataclass(frozen=True)
+class SearchTable:
+    """Decode table for the pivot search: slot -> symbol by bitwise
+    binary search over the cumulative-frequency bases of the present
+    (freq > 0) symbols.  pivots[k] holds base[m * 2^(k+1) + 2^k] for
+    level k of the search (k = depth-1 is probed first), padded with M
+    past the live alphabet."""
+
+    pivots: tuple  # level k -> (P >> (k+1),) i32 base values
+    depth: int
+    val: np.ndarray | None  # u32 (sigma,) raw value per dense id
+    high: np.ndarray | None  # u32 (sigma,)
+    nb: np.ndarray | None  # u32 (sigma,)
+    sigma: int  # dense (present-symbol) count
+    frame_size: int
+    log2m: int
+
+
+def _check_frame(M: int) -> int:
+    if M & (M - 1):
+        raise ValueError(f"frame size {M} not a power of two")
+    log2m = M.bit_length() - 1
+    if log2m > A_MAX_FRAME_LOG2:
+        raise ValueError(
+            f"frame 2**{log2m} exceeds the lane format's limit "
+            f"2**{A_MAX_FRAME_LOG2}; pass max_frame to the codec")
+    return log2m
+
+
+def build_enc_table(nfreqs: np.ndarray) -> EncTable:
+    nf = np.asarray(nfreqs, dtype=np.uint64)
+    M = int(nf.sum())
+    log2m = _check_frame(M)
+    base = np.concatenate(([0], np.cumsum(nf)[:-1])).astype(np.uint32)
+    # d <= M <= 2^22, so l <= 22 and (1 << (32+l)) fits u64 exactly
+    magic = np.zeros(len(nf), dtype=np.uint32)
+    live = np.flatnonzero(nf >= 2)
+    if len(live):
+        d = nf[live]
+        # bit_length of d-1: the frexp exponent is exact for d-1 < 2^22
+        l = np.frexp((d - np.uint64(1)).astype(np.float64))[1].astype(
+            np.uint64)
+        magic[live] = (((np.uint64(1) << (np.uint64(32) + l)) // d)
+                       + np.uint64(1) - (np.uint64(1) << np.uint64(32))
+                       ).astype(np.uint32)
+    return EncTable(freq=nf.astype(np.uint32), base=base, magic=magic,
+                    frame_size=M, log2m=log2m)
+
+
+def build_search_table(nfreqs: np.ndarray,
+                       high_of_sym: np.ndarray | None = None,
+                       nb_of_sym: np.ndarray | None = None) -> SearchTable:
+    nf = np.asarray(nfreqs, dtype=np.int64)
+    M = int(nf.sum())
+    log2m = _check_frame(M)
+    nz = np.flatnonzero(nf)
+    sigma = len(nz)
+    depth = (sigma - 1).bit_length() if sigma > 1 else 0
+    P = 1 << depth
+    base_pad = np.full(P, M, dtype=np.int32)
+    base_pad[:sigma] = np.concatenate(
+        ([0], np.cumsum(nf[nz])[:-1])).astype(np.int32)
+    pivots = []
+    for k in range(depth):
+        idxs = (np.arange(P >> (k + 1)) << (k + 1)) + (1 << k)
+        pivots.append(base_pad[idxs])
+    if high_of_sym is not None:
+        high = np.asarray(high_of_sym, dtype=np.uint32)[nz]
+        nb = np.asarray(nb_of_sym, dtype=np.uint32)[nz]
+        val = None
+    else:
+        high = nb = None
+        # identity when every symbol id 0..sigma-1 is present
+        val = None if sigma == len(nf) else nz.astype(np.uint32)
+    return SearchTable(pivots=tuple(pivots), depth=depth, val=val,
+                       high=high, nb=nb, sigma=sigma, frame_size=M,
+                       log2m=log2m)
+
+
+# --------------------------------------------------------------------------
+# device layout
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EncDevice:
+    """words: (sigma, 4) i32 rows [freq, base, magic (u32 bits), 0], one
+    16-byte load per symbol in the encode scan."""
+
+    words: torch.Tensor
+    frame_size: int
+    log2m: int
+
+
+@dataclass(frozen=True)
+class SearchDevice:
+    """bases: (P+1,) i32, the present symbols' cumulative bases padded
+    with M to P = 2^depth entries, then M once more (the upper bracket
+    of the last symbol); level k of the bitwise search probes
+    bases[(m << (k+1)) | (1 << k)].  high/nb: (sigma,) i32 per dense id;
+    the decoded value is high[m] + (the nb exception bytes read).  A
+    raw-value table rides in `high` with nb = 0, and the identity map is
+    high = arange(sigma)."""
+
+    bases: torch.Tensor
+    high: torch.Tensor
+    nb: torch.Tensor
+    depth: int
+    sigma: int
+    frame_size: int
+    log2m: int
+    NR: int  # renorm rounds per step (max_renorm_rounds)
+    NE: int  # exception rounds per step (max nb over the live symbols)
+
+
+def _i32(a: np.ndarray, device) -> torch.Tensor:
+    """u32/i32/i64 NumPy values -> i32 tensor with the same low 32 bits."""
+    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32)).view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def to_device(table, device):
+    """Device tensors for an encode table (EncTable) or a pivot-search
+    table (SearchTable).  Accepts this module's dataclasses or those of
+    ans_tpu.ops.tables, which carry the same fields (and, for the
+    encode table, a few the kernels do not read)."""
+    device = torch.device(device)
+    if hasattr(table, "pivots"):
+        return _search_to_device(table, device)
+    if hasattr(table, "magic"):
+        sig = len(table.freq)
+        words = np.zeros((sig, 4), dtype=np.uint32)
+        words[:, 0] = table.freq
+        words[:, 1] = table.base
+        words[:, 2] = table.magic
+        return EncDevice(words=_i32(words, device),
+                         frame_size=int(table.frame_size),
+                         log2m=int(table.log2m))
+    raise TypeError(f"not an encode or search table: {type(table)!r}")
+
+
+def _search_to_device(st, device) -> SearchDevice:
+    M = int(st.frame_size)
+    P = 1 << st.depth
+    bases = np.full(P + 1, M, dtype=np.int64)
+    bases[0] = 0
+    for k, piv in enumerate(st.pivots):
+        idx = (np.arange(P >> (k + 1)) << (k + 1)) + (1 << k)
+        bases[idx] = np.asarray(piv, dtype=np.int64)
+    if st.high is not None:
+        high, nb = st.high, st.nb
+    elif st.val is not None:
+        high, nb = st.val, np.zeros(st.sigma, np.uint32)
+    else:
+        high, nb = (np.arange(st.sigma, dtype=np.uint32),
+                    np.zeros(st.sigma, np.uint32))
+    NE = int(np.max(nb)) if st.high is not None and st.sigma else 0
+    return SearchDevice(bases=_i32(bases, device), high=_i32(high, device),
+                        nb=_i32(nb, device), depth=int(st.depth),
+                        sigma=int(st.sigma), frame_size=M,
+                        log2m=int(st.log2m),
+                        NR=max_renorm_rounds(int(st.log2m)), NE=NE)

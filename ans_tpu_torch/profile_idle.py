@@ -1,0 +1,145 @@
+"""Device idle share of the prepared encoder and decoder on one GPU.
+
+    python3 -m ans_tpu_torch.profile_idle [--n N] [--lanes S] [--seed 42]
+                                          [--calls 5] [--trace DIR]
+
+Stages bench.py's input (zipf(1.25), n = 2^25 values by default) with
+`models.prepare_encoder` / `models.prepare_decoder` (ANSfold-2) on
+cuda, then runs each `--calls` times under torch.profiler.  Each call is
+one `record_function` span that ends with `torch.cuda.synchronize()`,
+so the span's length is the call's wall time.  Its busy time is the
+union of the device intervals (kernels, copies, memsets) inside the
+span, so device work that overlaps is counted once.  The idle share is
+1 - busy / wall over all calls.  Prints the card's name and power limit,
+each call kind's wall, busy and idle share and the device time per
+operation name (per call), then one JSON line with the same numbers.
+`--trace DIR` keeps the Chrome traces.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def zipf_input(n: int, seed: int) -> np.ndarray:
+    """bench.py make_data() at size n."""
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(1.25, size=n) - 1).clip(0, (1 << 28) - 1).astype(
+        np.uint32)
+
+
+def union_length(intervals) -> float:
+    """Total length covered by (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def idle_share(events, label: str) -> dict:
+    """Wall, busy and per-operation device time (us, summed over the
+    spans named `label`) from Chrome trace events."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == label]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    wall = busy = 0.0
+    ops = defaultdict(float)
+    for w0, w1 in spans:
+        inside = [e for e in device
+                  if e["ts"] < w1 and e["ts"] + e["dur"] > w0]
+        busy += union_length((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                             for e in inside)
+        wall += w1 - w0
+        for e in inside:
+            ops[e["name"]] += e["dur"]
+    if not spans or not busy:
+        raise RuntimeError(f"the trace holds no device work for {label}")
+    k = len(spans)
+    return {"calls": k, "wall_us": wall / k, "busy_us": busy / k,
+            "idle_share": 1.0 - busy / wall,
+            "ops_us": {name: t / k for name, t in
+                       sorted(ops.items(), key=lambda kv: -kv[1])}}
+
+
+def profile(fns: dict, calls: int, trace_dir: Path) -> dict:
+    """Run each fn `calls` times in its own span under the profiler."""
+    from torch.profiler import ProfilerActivity, record_function
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for fn in fns.values():  # warm-up: builds, caches, allocator
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for label, fn in fns.items():
+            for _ in range(calls):
+                with record_function(label):
+                    fn()
+                    torch.cuda.synchronize()
+    path = trace_dir / "profile_idle.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return {label: idle_share(events, label) for label in fns}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=1 << 25)
+    ap.add_argument("--lanes", type=int, default=4096)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--trace", type=Path, default=None,
+                    help="directory to keep the Chrome trace in")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_idle: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    from . import models
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    x = zipf_input(args.n, args.seed)
+    pe = models.prepare_encoder("ANSfold-2", x, lanes=args.lanes,
+                                device="cuda")
+    blob = pe.prelude + pe.to_bytes(*pe())
+    pd = models.prepare_decoder("ANSfold-2", blob, args.n, device="cuda")
+    if not np.array_equal(pd.to_host(pd()), x):
+        print("profile_idle: the prepared decoder does not return the "
+              "input", file=sys.stderr)
+        return 1
+    fns = {"prepared_encode": pe, "prepared_decode": pd}
+    if args.trace is None:
+        with tempfile.TemporaryDirectory() as d:
+            res = profile(fns, args.calls, Path(d))
+    else:
+        args.trace.mkdir(parents=True, exist_ok=True)
+        res = profile(fns, args.calls, args.trace)
+    for label, r in res.items():
+        print(f"[{card}] {label} (n={args.n}, S={args.lanes}): wall "
+              f"{r['wall_us']:.1f} us, busy {r['busy_us']:.1f} us per call, "
+              f"idle share {r['idle_share']:.4f} over {r['calls']} calls")
+        for name, us in r["ops_us"].items():
+            print(f"    {us:10.1f} us  {name[:100]}")
+    print(json.dumps({"card": card, "n": args.n, "lanes": args.lanes,
+                      **res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

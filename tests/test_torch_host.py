@@ -1,0 +1,268 @@
+"""ans_tpu_torch host layers against ans_tpu: the NumPy copies of the
+lane-count policy, the fmt-2 framing and the table builders must equal
+the reference's exactly, and the package must import without JAX."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from ans_tpu.models import config as jconfig
+from ans_tpu.models import framing as jframing
+from ans_tpu.ops import grouped as jgrouped
+from ans_tpu.ops import tables as jtables
+from ans_tpu_torch.csrc import build
+from ans_tpu_torch.models import config, framing
+from ans_tpu_torch.ops import tables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 12800, 12801, 409600, 10 ** 6,
+                               27 * 10 ** 6, 1 << 25, 1 << 30])
+def test_default_lane_count(n):
+    assert config.default_lane_count(n) == jconfig.default_lane_count(n)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 32, 4096, 3, 0, -4, 96])
+def test_validate_lanes(lanes):
+    try:
+        want = jconfig.validate_lanes(lanes)
+    except ValueError:
+        with pytest.raises(ValueError):
+            config.validate_lanes(lanes)
+        return
+    assert config.validate_lanes(lanes) == want
+
+
+@pytest.mark.parametrize("seed,cap", [(0, 3 << 20), (1, 4096), (2, 1000),
+                                      (3, 50), (4, 1)])
+def test_choose_sections(seed, cap):
+    """Small caps force many sections (down to the 32-step quantum)."""
+    rng = np.random.default_rng(seed)
+    T = int(rng.integers(1, 3000))
+    per_step = rng.integers(0, 700, size=T)
+    step_base = np.concatenate(([0], np.cumsum(per_step)[:-1]))
+    total = int(per_step.sum())
+    t_sec, sec_len = framing.choose_sections(step_base, total, T,
+                                             cap_bytes=cap)
+    jt, jl = jframing.choose_sections(step_base, total, T, cap_bytes=cap)
+    assert t_sec == jt
+    np.testing.assert_array_equal(sec_len, jl)
+    assert sec_len.sum() == total
+
+
+def test_choose_sections_empty():
+    assert framing.choose_sections(np.zeros(0), 0, 0)[0] == \
+        jframing.choose_sections(np.zeros(0), 0, 0)[0]
+
+
+@pytest.mark.parametrize("S,nsec", [(1, 1), (32, 3), (4096, 16)])
+def test_pack_parse(S, nsec):
+    rng = np.random.default_rng(S)
+    states = rng.integers(1 << 23, 1 << 31, size=S).astype(np.uint32)
+    stream = rng.integers(0, 256, size=1000).astype(np.uint8)
+    sec_len = np.full(nsec, 1000 // nsec, np.int64)
+    sec_len[-1] += 1000 - sec_len.sum()
+    blob = framing.pack(states, stream, 64, sec_len)
+    assert blob == jframing.pack(states, stream, 64, sec_len)
+    pre = b"\x07prelude"
+    got = framing.parse(pre + blob, len(pre))
+    want = jframing.parse(pre + blob, len(pre))
+    assert got[0] == want[0] and got[3] == want[3]
+    for a, b in zip((got[1], got[2], got[4]), (want[1], want[2], want[4])):
+        np.testing.assert_array_equal(a, b)
+
+
+def _freqs(kind: str, rng) -> np.ndarray:
+    """Power-of-two-sum frequency vectors of several shapes."""
+    if kind == "single":
+        return np.array([0, 0, 1], np.uint64)
+    if kind == "three_rounds":
+        return np.full(4096, 32, np.uint64)         # M = 2^17
+    if kind == "max_frame":
+        nf = np.zeros(3000, np.uint64)
+        nf[::3] = 1
+        nf[0] += (1 << 22) - nf.sum()               # M = 2^22, f = M - 999
+        return nf
+    sigma = {"small": 5, "zipf": 1546, "sparse": 300}[kind]
+    M = 1 << {"small": 4, "zipf": 15, "sparse": 12}[kind]
+    nf = np.ones(sigma, np.uint64)
+    extra = rng.multinomial(M - sigma, 1.0 / np.arange(1, sigma + 1)
+                            / np.sum(1.0 / np.arange(1, sigma + 1)))
+    nf += extra.astype(np.uint64)
+    if kind == "sparse":
+        out = np.zeros(sigma * 5, np.uint64)
+        out[rng.choice(sigma * 5, sigma, replace=False)] = nf
+        return out
+    return nf
+
+
+KINDS = ["single", "small", "zipf", "sparse", "three_rounds", "max_frame"]
+
+
+def _assert_same(a, b, fields):
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(y, np.ndarray) or isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f)
+            assert np.asarray(x).dtype == np.asarray(y).dtype, f
+        else:
+            assert x == y, f
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_enc_table(kind):
+    nf = _freqs(kind, np.random.default_rng(3))
+    _assert_same(tables.build_enc_table(nf), jtables.build_enc_table(nf),
+                 ["freq", "base", "magic", "frame_size", "log2m"])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("fold", [False, True])
+def test_search_and_dec_tables(kind, fold):
+    nf = _freqs(kind, np.random.default_rng(4))
+    syms = np.arange(len(nf), dtype=np.uint32)
+    hi = nb = None
+    if fold:
+        hi, nb = syms * np.uint32(3), syms % np.uint32(4)
+    got, want = (tables.build_search_table(nf, hi, nb),
+                 jtables.build_search_table(nf, hi, nb))
+    _assert_same(got, want, ["depth", "val", "high", "nb", "sigma",
+                             "frame_size", "log2m"])
+    assert len(got.pivots) == len(want.pivots)
+    for a, b in zip(got.pivots, want.pivots):
+        np.testing.assert_array_equal(a, b)
+    # the search table is the port's whole decode table: it carries what
+    # ans_tpu's slot-free DecTable holds (the frame and per-symbol
+    # high/nb, here restricted to the present symbols)
+    jd = jtables.build_dec_table(nf, hi, nb, slots=False)
+    assert (got.frame_size, got.log2m) == (jd.frame_size, jd.log2m)
+    nz = np.flatnonzero(jd.nfreqs)
+    if fold:
+        np.testing.assert_array_equal(got.high, jd.sym_high[nz])
+        np.testing.assert_array_equal(got.nb, jd.sym_nb[nz])
+
+
+def test_table_limits():
+    for log2m in range(0, 24):
+        assert tables.max_renorm_rounds(log2m) == \
+            jtables.max_renorm_rounds(log2m)
+    assert tables.A_L == jtables.A_L
+    assert tables.GROUPED_MIN_SIGMA == jgrouped.GROUPED_MIN_SIGMA
+    for sigma in (1, 8192, 8193, 20000):
+        nf = np.ones(sigma, np.uint64)
+        assert tables.use_grouped_layout(nf) == \
+            jgrouped.use_grouped_layout(nf)
+    with pytest.raises(ValueError):
+        tables.build_enc_table(np.array([3, 2], np.uint64))
+    with pytest.raises(ValueError):
+        tables.build_enc_table(np.array([1 << 23], np.uint64))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_to_device_accepts_reference_tables(kind):
+    """to_device lays out ans_tpu's own tables exactly like the port's."""
+    nf = _freqs(kind, np.random.default_rng(5))
+    syms = np.arange(len(nf), dtype=np.uint32)
+    a = tables.to_device(tables.build_enc_table(nf), "cpu")
+    b = tables.to_device(jtables.build_enc_table(nf), "cpu")
+    assert torch.equal(a.words, b.words) and a.log2m == b.log2m
+    for args in ((), (syms + np.uint32(7), syms % np.uint32(3))):
+        a = tables.to_device(tables.build_search_table(nf, *args), "cpu")
+        b = tables.to_device(jtables.build_search_table(nf, *args), "cpu")
+        for f in ("bases", "high", "nb"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert (a.depth, a.sigma, a.NR, a.NE) == (b.depth, b.sigma, b.NR,
+                                                  b.NE)
+        # the padded bases are the present symbols' cumulative freqs
+        nz = nf[nf > 0].astype(np.int64)
+        want = np.concatenate(([0], np.cumsum(nz)))
+        np.testing.assert_array_equal(a.bases.numpy()[:len(want) - 1],
+                                      want[:-1])
+        assert int(a.bases[-1]) == int(nf.sum())
+    with pytest.raises(TypeError):
+        tables.to_device(object(), "cpu")
+
+
+def test_imports_without_jax():
+    """The port runs where JAX is absent: importing every module with
+    `jax` blocked must work, and must load no JAX-importing part of
+    ans_tpu (only ans_tpu.constants and ans_tpu.reference_model)."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import ans_tpu_torch
+        import ans_tpu_torch.models, ans_tpu_torch.models.engine
+        import ans_tpu_torch.ops.encode, ans_tpu_torch.ops.place
+        import ans_tpu_torch.ops.decode, ans_tpu_torch.ops.mappings
+        import ans_tpu_torch.csrc.build, ans_tpu_torch.profile_idle
+        import numpy as np
+        from ans_tpu_torch import models
+        x = (np.arange(3000) % 700).astype(np.uint32) ** 2
+        codec = models.get("ANSfold-2", device="cpu")
+        assert (codec.decode(codec.encode(x), len(x)) == x).all()
+        loaded = sorted(m for m in sys.modules
+                        if m.startswith("ans_tpu.") and sys.modules[m])
+        # ans_tpu.native is reference_model's optional C++ backend
+        bad = [m for m in loaded if not m.startswith(
+            ("ans_tpu.constants", "ans_tpu.reference_model",
+             "ans_tpu.native"))]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_idle_share_counts_overlap_once():
+    """The idle share's busy time is the union of the device intervals
+    inside each call's span: overlapping and out-of-span work is not
+    counted twice or at all."""
+    from ans_tpu_torch import profile_idle
+    assert profile_idle.union_length([(0, 4), (2, 6), (8, 9), (8.5, 9)]) \
+        == 7
+    ev = [{"cat": "user_annotation", "name": "dec", "ts": 100, "dur": 50},
+          {"cat": "user_annotation", "name": "dec", "ts": 200, "dur": 50},
+          {"cat": "kernel", "name": "k3", "ts": 95, "dur": 15},
+          {"cat": "kernel", "name": "k3", "ts": 105, "dur": 10},
+          {"cat": "gpu_memcpy", "name": "copy", "ts": 210, "dur": 30},
+          {"cat": "kernel", "name": "late", "ts": 300, "dur": 9},
+          {"cat": "cpu_op", "name": "host", "ts": 100, "dur": 50}]
+    r = profile_idle.idle_share(ev, "dec")
+    assert r["calls"] == 2 and r["wall_us"] == 50
+    assert r["busy_us"] == (15 + 30) / 2
+    assert r["idle_share"] == 1 - 45 / 100
+    assert r["ops_us"] == {"k3": 12.5, "copy": 15.0}
+    with pytest.raises(RuntimeError, match="no device work"):
+        profile_idle.idle_share(ev, "enc")
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """No nvcc: the first use of a kernel raises a clear error, with no
+    fallback and nothing left in the build directory."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_libs", {})
+    for name in ("encode_scan", "place", "decode_search"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load(name)
+    assert not (tmp_path / "_build").exists()
+
+
+def test_build_names_library_by_source():
+    """The library path changes with the kernel's source hash, so an
+    edited kernel is rebuilt rather than loaded stale."""
+    a = build._library_path("decode_search")
+    assert a.parent == build.BUILD_DIR and a.name.startswith(
+        "libdecode_search-")
+    assert build._library_path("place") != a
