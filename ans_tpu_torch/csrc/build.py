@@ -1,10 +1,11 @@
 """Build the lane-engine CUDA kernels and bind them with ctypes.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C interface.  At
-first use, `nvcc` compiles it for Hopper (sm_90a) into a shared library
-under `ans_tpu_torch/_build/`, named by a hash of its sources and flags
-so that an edited source is rebuilt; `ctypes` loads it.  Nothing here
-falls back: without `nvcc` the build raises.
+Each kernel is one `csrc/<name>.cu` file with a plain C interface
+(KERNELS lists them).  At first use, `nvcc` compiles it for Hopper
+(sm_90a) into a shared library under `ans_tpu_torch/_build/`, named by a
+hash of its sources and flags so that an edited source is rebuilt;
+`ctypes` loads it.  `load_all` starts one `nvcc` per missing library,
+all at once.  Nothing here falls back: without `nvcc` the build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ BUILD_DIR = CSRC.parent / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the kernel sources, csrc/<name>.cu, each exporting the C function <name>
+KERNELS = ("encode_scan", "encode_scan_grouped", "place", "decode_search",
+           "decode_grouped")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # name -> nvcc/ptxas report of this process
@@ -53,25 +58,41 @@ def _library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The compiled library of csrc/<name>.cu, built on first use."""
-    if name in _libs:
-        return _libs[name]
-    out = _library_path(name)
-    if not out.exists():
+    return load_all((name,))[name]
+
+
+def load_all(names=KERNELS) -> dict[str, ctypes.CDLL]:
+    """The libraries of `names`, building the missing ones in parallel
+    (one nvcc process per source)."""
+    missing = [name for name in dict.fromkeys(names)
+               if name not in _libs and not _library_path(name).exists()]
+    jobs = {}
+    if missing:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in missing:
+        out = _library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        jobs[name] = (out, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (out, tmp, proc) in jobs.items():
+        _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+            continue
         os.replace(tmp, out)
-        build_log[name] = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    lib.lane_error_string.argtypes = [ctypes.c_int]
-    lib.lane_error_string.restype = ctypes.c_char_p
-    _libs[name] = lib
-    return lib
+        build_log[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_library_path(name)))
+            lib.lane_error_string.argtypes = [ctypes.c_int]
+            lib.lane_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return {name: _libs[name] for name in names}
 
 
 def function(name: str, argtypes) -> ctypes._CFuncPtr:

@@ -1,6 +1,7 @@
-// Shared pieces of the lane-engine kernels: the fmt-2 constants and the
-// block-wide exclusive scan that turns per-thread byte-round counts into
-// ranks in lane order.
+// Shared pieces of the lane-engine kernels: the fmt-2 constants, the
+// encode step of K1 and K6, the block-wide exclusive scan that turns
+// per-thread byte-round counts into ranks in lane order, and the byte
+// reads of one lockstep decode step (K3 and K5).
 #pragma once
 
 #include <cstdint>
@@ -68,6 +69,101 @@ __device__ __forceinline__ void block_exclusive_scan(
       total[r] = s.w[r][32];
     }
   }
+}
+
+// x / d for d >= 2 by the Granlund-Montgomery multiply-high (exact for every
+// u32 x; d == 1 is selected around by the caller).
+__device__ __forceinline__ uint32_t gm_div(uint32_t x, uint32_t d,
+                                           uint32_t magic) {
+  const uint32_t mh = __umulhi(x, magic);
+  return (mh + ((x - mh) >> 1)) >> (31 - __clz(d - 1));  // ceil(log2 d)-1
+}
+
+// One encode step of a lane (K1, K6): emit up to three renorm bytes while
+// state >= ub = f << (31 - log2m), divide by f with the Granlund-Montgomery
+// magic (f == 1 around it), state = (q << log2m) + r + base.  Returns the
+// packed word r0 | r1<<8 | r2<<16 | rc<<24: byte slot i is the low byte of
+// the state after the first i conditional shifts, emitted or not.
+__device__ __forceinline__ uint32_t encode_step(uint32_t& st, uint32_t f,
+                                                uint32_t base, uint32_t magic,
+                                                int log2m) {
+  const uint32_t ub = f << (31 - log2m);
+  const uint32_t b0 = st & 0xFF;
+  const uint32_t e0 = st >= ub;
+  if (e0) st >>= 8;
+  const uint32_t b1 = st & 0xFF;
+  const uint32_t e1 = st >= ub;
+  if (e1) st >>= 8;
+  const uint32_t b2 = st & 0xFF;
+  const uint32_t e2 = st >= ub;
+  if (e2) st >>= 8;
+  const uint32_t q = f == 1 ? st : gm_div(st, f, magic);
+  const uint32_t r = st - q * f;
+  st = (q << log2m) + r + base;
+  return b0 | (b1 << 8) | (b2 << 16) | ((e0 + e1 + e2) << 24);
+}
+
+// The byte reads of one lockstep decode step (K3, K5), for the LPT lanes of
+// this thread.  rc[l] renorm bytes (round j < NR holds every lane's j-th
+// one) and ne[l] exception bytes (round NR + j) are known before any read,
+// so each round's block-wide exclusive scan gives a lane its rank, and its
+// byte sits at cursor + (the earlier rounds' totals) + rank.  Renorm bytes
+// are shifted into st[l], exception bytes into low[l], both high-first.  A
+// read at or past stream_len sets `bad` and reads 0.  Every thread of the
+// block calls it; returns the cursor after the step.
+template <int LPT>
+__device__ __forceinline__ int64_t read_merge(
+    const uint8_t* __restrict__ stream, int64_t stream_len, int64_t cursor,
+    int NR, int NE, const int (&rc)[LPT], const int (&ne)[LPT],
+    uint32_t (&st)[LPT], uint32_t (&low)[LPT], bool& bad, ScanScratch& s) {
+  int cnt[MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NR) cnt[j] += rc[l] > j;
+      if (j < NE) cnt[NR + j] += ne[l] > j;
+    }
+  }
+  int excl[MAX_ROUNDS], tot[MAX_ROUNDS];
+  block_exclusive_scan(NR + NE, cnt, excl, tot, s);
+
+  // stream position of this thread's next byte in each round
+  int64_t pos[MAX_ROUNDS];
+  int64_t base = cursor;
+#pragma unroll
+  for (int r = 0; r < MAX_ROUNDS; ++r) {
+    if (r < NR + NE) {
+      pos[r] = base + excl[r];
+      base += tot[r];
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) {
+    uint32_t v = st[l];
+    uint32_t lo = 0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NR && rc[l] > j) {
+        const int64_t p = pos[j]++;
+        const bool in = p < stream_len;
+        bad |= !in;
+        v = (v << 8) | (in ? stream[p] : 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NE && ne[l] > j) {
+        const int64_t p = pos[NR + j]++;
+        const bool in = p < stream_len;
+        bad |= !in;
+        lo = (lo << 8) | (in ? stream[p] : 0u);
+      }
+    }
+    st[l] = v;
+    low[l] = lo;
+  }
+  return base;
 }
 
 // Threads per block for a kernel that spreads S lanes over one block.

@@ -24,7 +24,8 @@
 // What the design does about it: the pivots and the per-symbol high/nb
 // tables live in shared memory; each thread owns LPT = S/1024 consecutive
 // lanes (at most 1024 threads), whose states stay in registers across all
-// T steps; all byte loads of a step are issued together after the scan.
+// T steps; all byte loads of a step are issued together after the scan
+// (lane::read_merge, shared with K5).
 // Every read is checked against the stream length: a corrupt blob sets
 // the error flag instead of reading out of bounds.  Decoding a batch of
 // streams, one per block, is what fills the card; that is later work.
@@ -57,7 +58,6 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
   const int l0 = threadIdx.x * LPT;
   const bool owns = l0 < S;  // S < 32 leaves threads idle
   const uint32_t M = 1u << log2m;
-  const int CH = NR + NE;
   uint32_t st[LPT];
 #pragma unroll
   for (int l = 0; l < LPT; ++l)
@@ -67,9 +67,7 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
   bool bad = false;
   for (int t = 0; t < T; ++t) {
     const int64_t row = static_cast<int64_t>(t) * S + l0;
-    uint32_t st0[LPT];
     int m[LPT], rc[LPT], ne[LPT];
-    int cnt[lane::MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
 #pragma unroll
     for (int l = 0; l < LPT; ++l) {
       const bool valid = owns && row + l < n;
@@ -85,59 +83,21 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
         ub = take ? ub : pv;
       }
       const uint32_t s0 = (ub - lb) * (st[l] >> log2m) + (slot - lb);
-      st0[l] = valid ? s0 : st[l];
+      if (valid) st[l] = s0;
       int r = 0;
 #pragma unroll
       for (int j = 0; j < 3; ++j)
-        r += valid && j < NR && st0[l] < (lane::A_L >> (8 * j));
+        r += valid && j < NR && st[l] < (lane::A_L >> (8 * j));
       m[l] = mm;
       rc[l] = r;
       ne[l] = valid ? nbt[mm] : 0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j < NR) cnt[j] += r > j;
-        if (j < NE) cnt[NR + j] += ne[l] > j;
-      }
     }
-    int excl[lane::MAX_ROUNDS], tot[lane::MAX_ROUNDS];
-    lane::block_exclusive_scan(CH, cnt, excl, tot, scratch[t & 1]);
-
-    // stream position of this thread's next byte in each round
-    int64_t pos[lane::MAX_ROUNDS];
-    int64_t base = cursor;
+    uint32_t low[LPT];
+    cursor = lane::read_merge<LPT>(stream, stream_len, cursor, NR, NE, rc, ne,
+                                   st, low, bad, scratch[t & 1]);
 #pragma unroll
-    for (int r = 0; r < lane::MAX_ROUNDS; ++r) {
-      if (r < CH) {
-        pos[r] = base + excl[r];
-        base += tot[r];
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < LPT; ++l) {
-      uint32_t s = st0[l];
-      uint32_t low = 0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j < NR && rc[l] > j) {
-          const int64_t p = pos[j]++;
-          const bool in = p < stream_len;
-          bad |= !in;
-          s = (s << 8) | (in ? stream[p] : 0u);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j < NE && ne[l] > j) {
-          const int64_t p = pos[NR + j]++;
-          const bool in = p < stream_len;
-          bad |= !in;
-          low = (low << 8) | (in ? stream[p] : 0u);
-        }
-      }
-      st[l] = s;
-      if (owns) out[row + l] = static_cast<int32_t>(high[m[l]] + low);
-    }
-    cursor = base;
+    for (int l = 0; l < LPT; ++l)
+      if (owns) out[row + l] = static_cast<int32_t>(high[m[l]] + low[l]);
   }
   if (bad) *err = 1;
 }

@@ -62,30 +62,9 @@ __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
     uint32_t word;
     if (idx < n) {
       // an absent symbol (freq 0) codes as freq 1, as the plain version
-      const uint32_t f = max(static_cast<uint32_t>(row.x), 1u);
-      const uint32_t base = static_cast<uint32_t>(row.y);
-      const uint32_t magic = static_cast<uint32_t>(row.z);
-      const uint32_t ub = f << (31 - log2m);
-      const uint32_t b0 = st & 0xFF;
-      const uint32_t e0 = st >= ub;
-      if (e0) st >>= 8;
-      const uint32_t b1 = st & 0xFF;
-      const uint32_t e1 = st >= ub;
-      if (e1) st >>= 8;
-      const uint32_t b2 = st & 0xFF;
-      const uint32_t e2 = st >= ub;
-      if (e2) st >>= 8;
-      uint32_t q;
-      if (f == 1) {
-        q = st;
-      } else {
-        const uint32_t mh = __umulhi(st, magic);
-        const int sh = 31 - __clz(f - 1);  // ceil(log2 f) - 1
-        q = (mh + ((st - mh) >> 1)) >> sh;
-      }
-      const uint32_t r = st - q * f;
-      st = (q << log2m) + r + base;
-      word = b0 | (b1 << 8) | (b2 << 16) | ((e0 + e1 + e2) << 24);
+      word = lane::encode_step(st, max(static_cast<uint32_t>(row.x), 1u),
+                               static_cast<uint32_t>(row.y),
+                               static_cast<uint32_t>(row.z), log2m);
     } else {
       const uint32_t b = st & 0xFF;  // pad position: no bytes, state kept
       word = b | (b << 8) | (b << 16);

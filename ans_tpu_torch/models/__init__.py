@@ -11,21 +11,26 @@ from __future__ import annotations
 
 from ans_tpu.reference_model.model import serialize_prelude
 
-from ..ops import lane_codec, tables
+from ..ops import lane_codec
 from . import ans as _lane
 from . import config, framing
 from .engine import PreparedDecoder, PreparedEncoder
 
-_LANE = {f"ANSfold-{f}": (lambda device, f=f: _lane.AnsFold(f, device=device))
-         for f in range(1, 9)}
+# name -> codec factory (lanes, device)
+_LANE = {
+    "ANS": lambda lanes, device: _lane.AnsInt(lanes=lanes, device=device),
+    **{f"ANSfold-{f}": (lambda lanes, device, f=f: _lane.AnsFold(
+        f, lanes=lanes, device=device)) for f in range(1, 9)},
+    **{f"ANSsint-{h}": (lambda lanes, device, h=h: _lane.AnsInt(
+        h, lanes=lanes, device=device))
+       for h in (1, 5, 10, 20, 40, 80, 160, 320)},
+}
 
 # name prefix -> where it is queued (ROADMAP.md, queue 1)
 _UNPORTED = (
     ("ANSrfold-", "queue 1 item 4 (AnsReorderFold)"),
-    ("ANSsint-", "queue 1 item 4 (AnsSint, with the tail escape)"),
     ("ANSsmsb-", "queue 1 item 4 (AnsSmsb)"),
     ("ANSmsb", "queue 1 item 4 (AnsMsb)"),
-    ("ANS", "queue 1 item 4 (AnsInt, with the tail escape)"),
     ("pseudo_adaptive", "queue 1 item 9 (pseudo-adaptive)"),
     ("", "queue 1 item 8 (byte splitters and host codecs)"),
 )
@@ -43,16 +48,17 @@ def available():
     return sorted(_LANE)
 
 
-def get(name: str, *, device):
-    """The codec `name` running on `device` (e.g. "cuda" or "cpu")."""
-    return _lookup(name)(device)
+def get(name: str, *, device, lanes: int | None = None):
+    """The codec `name` running on `device` (e.g. "cuda" or "cpu"),
+    writing `lanes` lanes (None: the default lane count of the input)."""
+    return _lookup(name)(lanes, device)
 
 
 def prepare_decoder(name: str, blob: bytes, n: int, *, device):
     """Stage a lane-format blob for repeated decodes on `device`: parse
     the wire prelude, rebuild the decode table as `decode()` does, and
     return an engine.PreparedDecoder (call it to run the kernel)."""
-    codec = _lookup(name)(device)
+    codec = _lookup(name)(None, device)
     blob = memoryview(blob).tobytes()
     table, off = codec._dec_table(blob)
     S, states, payload, _, sec_len = framing.parse(blob, off)
@@ -68,13 +74,11 @@ def prepare_encoder(name: str, values, *, lanes: int = 4096, device):
     `pe.prelude + pe.to_bytes(*pe())` is the full wire blob, identical to
     `get(name, device=device).encode(values)` for a codec with the same
     lane count."""
-    codec = _lookup(name)(device)
-    mapped, k, low, nfreqs = codec._enc_inputs(values)
-    tables.require_ungrouped(nfreqs)
+    codec = _lookup(name)(lanes, device)
+    mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
     n = int(mapped.shape[0])
     S = config.validate_lanes(lanes) or config.default_lane_count(n)
-    T = lane_codec.lane_steps(n, S)
-    et = tables.build_enc_table(nfreqs)
-    pe = PreparedEncoder(*_lane._stage_ts(mapped, k, low, n, S, T), n, et)
-    pe.prelude = serialize_prelude(nfreqs, int(nfreqs.sum()))
+    table, staged = _lane._stage(mapped, k, low, n, ffreqs, raw, S)
+    pe = PreparedEncoder(*staged, n, table)
+    pe.prelude = serialize_prelude(pfreqs, int(pfreqs.sum()))
     return pe

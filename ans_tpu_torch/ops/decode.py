@@ -1,8 +1,9 @@
-"""K3, the pivot-search lockstep decode (csrc/decode_search.cu), and its
-wrapper.
+"""K3, the pivot-search lockstep decode (csrc/decode_search.cu), and K5,
+the grouped lockstep decode (csrc/decode_grouped.cu), and their wrappers.
 
-Replaces ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search`
-(the direct and grouped decoders K4/K5 are not ported yet)."""
+Replace ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search` and
+`stage_grouped` + `_call_grouped` (the direct decoder K4 is not ported
+yet)."""
 
 from __future__ import annotations
 
@@ -11,14 +12,15 @@ import ctypes as ct
 import torch
 
 from ..csrc import build
-from .lane_codec import decode_search_plain
-from .tables import SearchDevice
+from .lane_codec import decode_grouped_plain, decode_search_plain
+from .tables import GroupedDecDevice, SearchDevice
 
-# launches of the CUDA kernel (never counts the plain version)
+# launches of the CUDA kernels K3 and K5 (never counts a plain version)
 launches = 0
+grouped_launches = 0
 
-# the kernel keeps LPT = S/1024 lane states per thread in registers and
-# is compiled for LPT <= 16
+# the kernels keep LPT = S/1024 lane states per thread in registers and
+# are compiled for LPT <= 16
 MAX_LANES = 1 << 14
 
 _ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
@@ -37,19 +39,12 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
     would pass the end of the stream.  CPU tensors run the plain version
     (lane_codec.decode_search_plain); CUDA tensors launch the kernel."""
     global launches
-    if stream.dim() != 1 or stream.dtype != torch.uint8:
-        raise ValueError("decode_search: stream must be a 1-d uint8 tensor")
-    if states.dim() != 1 or states.dtype != torch.int32:
-        raise ValueError("decode_search: states must be a 1-d int32 tensor")
+    _check_inputs("decode_search", stream, states)
     tensors = (stream, states, table.bases, table.high, table.nb)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_search_plain(stream, states, table, n, T)
     dev = build.require_cuda("decode_search", *tensors)
-    S = states.numel()
-    if S > MAX_LANES:
-        raise NotImplementedError(
-            f"decode_search: S = {S} lanes; the kernel takes at most "
-            f"{MAX_LANES}")
+    S = _lanes("decode_search", states)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_search", _ARGTYPES)
@@ -59,7 +54,63 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
         table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
         build.ptr(out), build.ptr(err), build.current_stream(dev)))
     launches += 1
+    _raise_on(err)
+    return out
+
+
+_GROUPED_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+                     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int,
+                     ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                     ct.c_int64, ct.c_int, ct.c_int, ct.c_void_p,
+                     ct.c_void_p, ct.c_void_p]
+
+
+def decode_grouped(stream: torch.Tensor, states: torch.Tensor,
+                   table: GroupedDecDevice, n: int, T: int) -> torch.Tensor:
+    """Decode T lockstep steps of a frequency-grouped frame; arguments,
+    result and errors as decode_search.  CPU tensors run the plain
+    version (lane_codec.decode_grouped_plain); CUDA tensors launch the
+    kernel."""
+    global grouped_launches
+    _check_inputs("decode_grouped", stream, states)
+    tensors = (stream, states, table.groups, table.bases, table.table,
+               table.nb)
+    if all(t.device.type == "cpu" for t in tensors):
+        return decode_grouped_plain(stream, states, table, n, T)
+    dev = build.require_cuda("decode_grouped", *tensors)
+    S = _lanes("decode_grouped", states)
+    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.function("decode_grouped", _GROUPED_ARGTYPES)
+    build.check("decode_grouped", fn(
+        build.ptr(stream), stream.numel(), build.ptr(states),
+        build.ptr(table.groups), build.ptr(table.bases),
+        build.ptr(table.table) if table.table.numel() else None,
+        build.ptr(table.nb) if table.NE else None, table.groups.shape[0],
+        table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
+        build.ptr(out), build.ptr(err), build.current_stream(dev)))
+    grouped_launches += 1
+    _raise_on(err)
+    return out
+
+
+def _check_inputs(name: str, stream: torch.Tensor,
+                  states: torch.Tensor) -> None:
+    if stream.dim() != 1 or stream.dtype != torch.uint8:
+        raise ValueError(f"{name}: stream must be a 1-d uint8 tensor")
+    if states.dim() != 1 or states.dtype != torch.int32:
+        raise ValueError(f"{name}: states must be a 1-d int32 tensor")
+
+
+def _lanes(name: str, states: torch.Tensor) -> int:
+    S = states.numel()
+    if S > MAX_LANES:
+        raise NotImplementedError(
+            f"{name}: S = {S} lanes; the kernel takes at most {MAX_LANES}")
+    return S
+
+
+def _raise_on(err: torch.Tensor) -> None:
     if err.item():
         raise ValueError("corrupt lane stream: a read passes the end of "
                          "the stream")
-    return out

@@ -3,11 +3,11 @@ lockstep over one shared byte stream (docs/FORMAT.md section 2).
 
 Counterpart of ans_tpu/ops/lane_codec.py.  Besides the host-side
 helpers of the engine (`lane_steps`, `encode_totals`) this module holds
-the PLAIN VERSIONS of the three CUDA kernels: each computes the same
-function from the same inputs as its kernel, with ordinary tensor ops.
-The kernels' wrappers (ops/encode.py, ops/place.py, ops/decode.py) run
-them for tensors on the CPU, and chip_smoke.py holds each kernel against
-its plain version on the card.
+the PLAIN VERSIONS of the CUDA kernels: each computes the same function
+from the same inputs as its kernel, with ordinary tensor ops.  The
+kernels' wrappers (ops/encode.py, ops/place.py, ops/decode.py) run them
+for tensors on the CPU, and chip_smoke.py holds each kernel against its
+plain version on the card.
 
 Layout: the symbol at position p = t*S + lane is handled by `lane` at
 step t, so per-position arrays are staged (T, S).  u32 quantities travel
@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from .tables import A_L, EncDevice, SearchDevice
+from .tables import (A_L, EncDevice, GroupedDecDevice, GroupedEncDevice,
+                     SearchDevice)
 
 NROUNDS = 6  # 3 renorm + 3 exception byte rounds per step
 
@@ -75,29 +76,65 @@ def encode_scan_plain(syms: torch.Tensor, n: int, table: EncDevice):
     slot i holds the low byte of the state after the first i conditional
     renorm shifts (emitted or not) and rc counts the emitted bytes."""
     T, S = syms.shape
-    dev = syms.device
-    log2m = table.log2m
+    valid = _valid(T, S, n, syms.device)
+    s = torch.where(valid, syms.to(torch.int64), 0)
     words = table.words.to(torch.int64) & 0xFFFFFFFF
-    freq, base = words[:, 0], words[:, 1]
-    lanes = torch.arange(S, device=dev, dtype=torch.int64)
-    state = torch.full((S,), A_L, dtype=torch.int64, device=dev)
-    packed = torch.empty((T, S), dtype=torch.int32, device=dev)
+    return _scan(words[s, 0], words[s, 1], valid, table.log2m)
+
+
+def encode_scan_grouped_plain(syms: torch.Tensor, n: int,
+                              table: GroupedEncDevice):
+    """Plain version of K6 (csrc/encode_scan_grouped.cu): the reverse
+    rANS scan in rank space under the frequency-grouped layout.
+
+    syms: (T, S) i32 ranks, or symbol ids when table.rank_of is given
+    (rank = rank_of[sym & 0xFFFFFF]).  The group of a rank is found by
+    `torch.searchsorted` over the group rank boundaries (the kernel runs
+    a bitwise binary search), and base = slot0 + (rank - rank0) * f.
+    Returns (packed, states) as encode_scan_plain does.  Raises
+    ValueError when a symbol or a rank lies outside the tables."""
+    T, S = syms.shape
+    valid = _valid(T, S, n, syms.device)
+    r = torch.where(valid, syms.to(torch.int64), 0)
+    if table.rank_of is not None:
+        r = r & 0xFFFFFF
+        if bool((r >= table.rank_of.numel()).any()):
+            raise ValueError("encode_scan_grouped: a symbol or rank lies "
+                             "outside the table")
+        r = torch.where(valid, table.rank_of.to(torch.int64)[r], 0)
+    if bool(((r < 0) | (r >= table.sigma)).any()):
+        raise ValueError("encode_scan_grouped: a symbol or rank lies "
+                         "outside the table")
+    m = torch.searchsorted(table.bases[:-1].to(torch.int64), r,
+                           right=True) - 1
+    rows = table.groups.to(torch.int64)[m] & 0xFFFFFFFF
+    f = rows[..., 0]
+    return _scan(f, rows[..., 2] + (r - rows[..., 3]) * f, valid,
+                 table.log2m)
+
+
+def _scan(freq: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
+          log2m: int):
+    """The reverse scan of K1 and K6 over (T, S) int64 per-position
+    frequencies and slot bases (pad positions are masked by `valid`)."""
+    T, S = freq.shape
+    f_all = freq.clamp(min=1)  # an absent symbol codes as freq 1
+    state = torch.full((S,), A_L, dtype=torch.int64, device=freq.device)
+    packed = torch.empty((T, S), dtype=torch.int32, device=freq.device)
     for t in range(T - 1, -1, -1):
-        valid = t * S + lanes < n
-        s = torch.where(valid, syms[t].to(torch.int64), 0)
-        f = freq[s].clamp(min=1)
+        v, f = valid[t], f_all[t]
         ub = f << (31 - log2m)
         st = state
         word = torch.zeros_like(st)
         rc = torch.zeros_like(st)
         for i in range(3):
-            e = valid & (st >= ub)
+            e = v & (st >= ub)
             word |= (st & 0xFF) << (8 * i)
             rc += e
             st = torch.where(e, st >> 8, st)
         q = st // f
-        new = (q << log2m) + (st - q * f) + base[s]
-        state = torch.where(valid, new, state)
+        new = (q << log2m) + (st - q * f) + base[t]
+        state = torch.where(v, new, state)
         packed[t] = (word | (rc << 24)).to(torch.int32)
     return packed, state.to(torch.int32)
 
@@ -137,14 +174,61 @@ def decode_search_plain(stream: torch.Tensor, states: torch.Tensor,
     states.  Returns (T, S) i32 bit patterns of the decoded u32 values
     (positions >= n hold don't-care values).  Raises ValueError when a
     read would pass the end of the stream (a corrupt blob)."""
-    S = states.numel()
-    dev = states.device
-    log2m, M = table.log2m, table.frame_size
-    NR, NE = table.NR, table.NE
+    M = table.frame_size
     bases = table.bases.to(torch.int64)
     search = bases[:-1].contiguous()
     high = table.high.to(torch.int64) & 0xFFFFFFFF
     nbt = table.nb.to(torch.int64)
+
+    def symbol(state):
+        slot = state & (M - 1)
+        m = torch.searchsorted(search, slot, right=True) - 1
+        lb, ub = bases[m], bases[m + 1]
+        return ((ub - lb) * (state >> table.log2m) + slot - lb, nbt[m],
+                high[m])
+
+    return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
+
+
+def decode_grouped_plain(stream: torch.Tensor, states: torch.Tensor,
+                         table: GroupedDecDevice, n: int,
+                         T: int) -> torch.Tensor:
+    """Plain version of K5 (csrc/decode_grouped.cu): lockstep decode of
+    a frequency-grouped frame.  The group comes from `torch.searchsorted`
+    over the group slot boundaries and the in-group index from an exact
+    integer division (the kernel runs a bitwise binary search and a
+    multiply-high); rank = rank0 + j.  The value is table[rank] (or the
+    rank itself when the table is empty) plus the exception bytes.
+    Arguments, result and errors as decode_search_plain."""
+    M = table.frame_size
+    search = table.bases[:-1].to(torch.int64)
+    rows = table.groups.to(torch.int64) & 0xFFFFFFFF
+    out = table.table.to(torch.int64) & 0xFFFFFFFF
+    nbt = table.nb.to(torch.int64)
+
+    def symbol(state):
+        slot = state & (M - 1)
+        g = rows[torch.searchsorted(search, slot, right=True) - 1]
+        f = g[:, 0]
+        x = slot - g[:, 2]
+        j = x // f
+        rank = g[:, 3] + j
+        st0 = f * (state >> table.log2m) + x - j * f
+        return (st0, nbt[rank] if table.NE else None,
+                out[rank] if out.numel() else rank)
+
+    return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
+
+
+def _decode_plain(stream, states, n: int, T: int, NR: int, NE: int,
+                  symbol) -> torch.Tensor:
+    """The lockstep loop of K3 and K5.  symbol(state) gives each lane's
+    state before renormalisation, its exception-byte count (None when
+    NE = 0) and the value's high part; this loop ranks every round's
+    byte reads over the lanes, merges the bytes high-first and advances
+    one cursor over the whole stream."""
+    S = states.numel()
+    dev = states.device
     L = stream.numel()
     # one zero byte past the end takes the (flagged) out-of-range reads
     src = torch.cat([stream.to(torch.int64),
@@ -159,14 +243,13 @@ def decode_search_plain(stream: torch.Tensor, states: torch.Tensor,
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     for t in range(T):
         valid = t * S + lanes < n
-        slot = state & (M - 1)
-        m = torch.searchsorted(search, slot, right=True) - 1
-        lb, ub = bases[m], bases[m + 1]
-        st0 = torch.where(valid, (ub - lb) * (state >> log2m) + slot - lb,
-                          state)
+        st0, nb, high = symbol(state)
+        st0 = torch.where(valid, st0, state)
         rc = torch.where(valid, (st0[:, None] < thr).sum(1), 0)
-        nb = torch.where(valid, nbt[m], 0)
-        masks = torch.cat([rc[:, None] > j[:NR], nb[:, None] > j[:NE]], 1)
+        masks = rc[:, None] > j[:NR]
+        if NE:
+            nb = torch.where(valid, nb, 0)
+            masks = torch.cat([masks, nb[:, None] > j[:NE]], 1)
         mi = masks.to(torch.int64)
         tot = mi.sum(0)
         pos = cursor + (torch.cumsum(tot, 0) - tot) + torch.cumsum(mi, 0) - mi
@@ -178,7 +261,7 @@ def decode_search_plain(stream: torch.Tensor, states: torch.Tensor,
         low = torch.zeros_like(st)
         for k in range(NR, NR + NE):
             low = torch.where(masks[:, k], (low << 8) | byte[:, k], low)
-        out[t] = ((high[m] + low) & 0xFFFFFFFF).to(torch.int32)
+        out[t] = ((high + low) & 0xFFFFFFFF).to(torch.int32)
         state = st
         cursor = cursor + tot.sum()
     if bool(overrun):

@@ -3,9 +3,9 @@
 A NumPy copy of the table builders in ans_tpu/ops/tables.py (held equal
 to them by tests/test_torch_host.py) plus `to_device`, which lays a table
 out as the device tensors the CUDA kernels and their plain versions read.
-Only the value-cumulative slot layout is ported; the frequency-grouped
-layout (ans_tpu/ops/grouped.py) is recognised by `use_grouped_layout`
-and refused with NotImplementedError until its kernels (K5, K6) exist.
+Frames with more than 2^13 live symbols use the frequency-grouped slot
+layout (ops/grouped.py): their decode table is a `GroupedTable`, their
+encoder's tables come from `grouped_enc_to_device`.
 """
 
 from __future__ import annotations
@@ -17,29 +17,11 @@ import torch
 
 from ans_tpu.constants import A_KM_LOG2, A_MAX_FRAME_LOG2
 
+from .grouped import (GroupLayout, _gm_magic, build_group_layout,
+                      use_grouped_layout)
+
 # fmt A lower bound: state in [A_L, 256*A_L)
 A_L = 1 << A_KM_LOG2
-
-# FORMAT CONSTANT (ans_tpu/ops/grouped.py): alphabets with this many live
-# symbols use the frequency-grouped slot layout
-GROUPED_MIN_SIGMA = (1 << 13) + 1
-
-
-def use_grouped_layout(nfreqs) -> bool:
-    """Pure function of the prelude frequency vector (both coder sides
-    must agree)."""
-    return int(np.count_nonzero(np.asarray(nfreqs))) >= GROUPED_MIN_SIGMA
-
-
-def require_ungrouped(nfreqs) -> None:
-    """Raise NotImplementedError for a frame that selects the grouped
-    layout; every other frame fits the ported kernels (the pivot-search
-    decoder takes sigma <= 2^13)."""
-    if use_grouped_layout(nfreqs):
-        raise NotImplementedError(
-            f"{int(np.count_nonzero(np.asarray(nfreqs)))} live symbols "
-            "select the frequency-grouped slot layout, which waits for its "
-            "kernels K5/K6 (ROADMAP queue 1 item 6, queue 2)")
 
 
 def max_renorm_rounds(log2m: int) -> int:
@@ -99,19 +81,8 @@ def build_enc_table(nfreqs: np.ndarray) -> EncTable:
     M = int(nf.sum())
     log2m = _check_frame(M)
     base = np.concatenate(([0], np.cumsum(nf)[:-1])).astype(np.uint32)
-    # d <= M <= 2^22, so l <= 22 and (1 << (32+l)) fits u64 exactly
-    magic = np.zeros(len(nf), dtype=np.uint32)
-    live = np.flatnonzero(nf >= 2)
-    if len(live):
-        d = nf[live]
-        # bit_length of d-1: the frexp exponent is exact for d-1 < 2^22
-        l = np.frexp((d - np.uint64(1)).astype(np.float64))[1].astype(
-            np.uint64)
-        magic[live] = (((np.uint64(1) << (np.uint64(32) + l)) // d)
-                       + np.uint64(1) - (np.uint64(1) << np.uint64(32))
-                       ).astype(np.uint32)
-    return EncTable(freq=nf.astype(np.uint32), base=base, magic=magic,
-                    frame_size=M, log2m=log2m)
+    return EncTable(freq=nf.astype(np.uint32), base=base,
+                    magic=_gm_magic(nf), frame_size=M, log2m=log2m)
 
 
 def build_search_table(nfreqs: np.ndarray,
@@ -142,6 +113,45 @@ def build_search_table(nfreqs: np.ndarray,
     return SearchTable(pivots=tuple(pivots), depth=depth, val=val,
                        high=high, nb=nb, sigma=sigma, frame_size=M,
                        log2m=log2m)
+
+
+@dataclass(frozen=True)
+class GroupedTable:
+    """Decode table of a frequency-grouped frame: the layout and one
+    per-rank output table, as SearchTable has per dense id: `val` (the
+    raw value of each rank), or `high`/`nb` (fold and escape coders), or
+    neither when every rank is its own value (perm is the identity)."""
+
+    layout: GroupLayout
+    val: np.ndarray | None   # u32 (sigma,)
+    high: np.ndarray | None  # u32 (sigma,)
+    nb: np.ndarray | None    # u32 (sigma,)
+
+
+def build_grouped_table(nfreqs: np.ndarray,
+                        high_of_sym: np.ndarray | None = None,
+                        nb_of_sym: np.ndarray | None = None) -> GroupedTable:
+    layout = build_group_layout(nfreqs)
+    _check_frame(layout.frame_size)
+    perm = layout.perm
+    if high_of_sym is not None:
+        return GroupedTable(
+            layout=layout, val=None,
+            high=np.asarray(high_of_sym, dtype=np.uint32)[perm],
+            nb=np.asarray(nb_of_sym, dtype=np.uint32)[perm])
+    identity = bool((perm == np.arange(layout.sigma)).all())
+    return GroupedTable(layout=layout, val=None if identity else perm,
+                        high=None, nb=None)
+
+
+def build_dec_table(nfreqs: np.ndarray,
+                    high_of_sym: np.ndarray | None = None,
+                    nb_of_sym: np.ndarray | None = None):
+    """The decode table the prelude's frequencies select: GroupedTable
+    past 2^13 live symbols, SearchTable below."""
+    build = (build_grouped_table if use_grouped_layout(nfreqs)
+             else build_search_table)
+    return build(nfreqs, high_of_sym, nb_of_sym)
 
 
 # --------------------------------------------------------------------------
@@ -185,12 +195,28 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def _bases(pivots, depth: int, pad: int) -> np.ndarray:
+    """(P+1,) search bases from pivot levels: level k of the bitwise
+    search probes bases[(m << (k+1)) | (1 << k)]; entry 0 (the first
+    bracket, never probed) is 0 and the rest is padded with `pad`."""
+    P = 1 << depth
+    bases = np.full(P + 1, pad, dtype=np.int64)
+    bases[0] = 0
+    for k, piv in enumerate(pivots):
+        idx = (np.arange(P >> (k + 1)) << (k + 1)) + (1 << k)
+        bases[idx] = np.asarray(piv, dtype=np.int64)
+    return bases
+
+
 def to_device(table, device):
-    """Device tensors for an encode table (EncTable) or a pivot-search
-    table (SearchTable).  Accepts this module's dataclasses or those of
-    ans_tpu.ops.tables, which carry the same fields (and, for the
-    encode table, a few the kernels do not read)."""
+    """Device tensors for an encode table (EncTable), a pivot-search
+    table (SearchTable) or a grouped decode table (GroupedTable).
+    Accepts this module's dataclasses or those of ans_tpu.ops.tables,
+    which carry the same fields (and, for the encode table, a few the
+    kernels do not read)."""
     device = torch.device(device)
+    if hasattr(table, "layout"):
+        return _grouped_to_device(table, device)
     if hasattr(table, "pivots"):
         return _search_to_device(table, device)
     if hasattr(table, "magic"):
@@ -202,17 +228,12 @@ def to_device(table, device):
         return EncDevice(words=_i32(words, device),
                          frame_size=int(table.frame_size),
                          log2m=int(table.log2m))
-    raise TypeError(f"not an encode or search table: {type(table)!r}")
+    raise TypeError(f"not an encode or decode table: {type(table)!r}")
 
 
 def _search_to_device(st, device) -> SearchDevice:
     M = int(st.frame_size)
-    P = 1 << st.depth
-    bases = np.full(P + 1, M, dtype=np.int64)
-    bases[0] = 0
-    for k, piv in enumerate(st.pivots):
-        idx = (np.arange(P >> (k + 1)) << (k + 1)) + (1 << k)
-        bases[idx] = np.asarray(piv, dtype=np.int64)
+    bases = _bases(st.pivots, st.depth, M)
     if st.high is not None:
         high, nb = st.high, st.nb
     elif st.val is not None:
@@ -226,3 +247,75 @@ def _search_to_device(st, device) -> SearchDevice:
                         sigma=int(st.sigma), frame_size=M,
                         log2m=int(st.log2m),
                         NR=max_renorm_rounds(int(st.log2m)), NE=NE)
+
+
+@dataclass(frozen=True)
+class GroupedEncDevice:
+    """The grouped encode scan's tables (K6).  groups: (NG, 4) i32 rows
+    [f, magic, slot0, rank0], one 16-byte load per group; bases: (P+1,)
+    i32 rank boundaries g_rank0 laid out like SearchDevice.bases and
+    padded with sigma; rank_of: (len(nfreqs),) i32 symbol -> rank, for
+    scans fed symbol ids, or None for scans fed ranks."""
+
+    groups: torch.Tensor
+    bases: torch.Tensor
+    rank_of: torch.Tensor | None
+    depth: int
+    sigma: int
+    frame_size: int
+    log2m: int
+
+
+@dataclass(frozen=True)
+class GroupedDecDevice:
+    """The grouped decode's tables (K5).  groups: (NG, 4) i32 rows
+    [f, magic, slot0, rank0]; bases: (P+1,) i32 slot boundaries g_slot0
+    laid out like SearchDevice.bases and padded with M; table: (sigma,)
+    i32 per-rank value or high part, or (0,) when the rank is the value;
+    nb: (sigma,) u8 exception bytes per rank, or (0,) when NE = 0.  The
+    decoded value is table[rank] (or rank) + the nb exception bytes."""
+
+    groups: torch.Tensor
+    bases: torch.Tensor
+    table: torch.Tensor
+    nb: torch.Tensor
+    depth: int
+    sigma: int
+    frame_size: int
+    log2m: int
+    NR: int
+    NE: int
+
+
+def _group_rows(layout, device) -> torch.Tensor:
+    return _i32(np.stack([layout.g_f, layout.g_magic, layout.g_slot0,
+                          layout.g_rank0], axis=1), device)
+
+
+def grouped_enc_to_device(layout, device, *, rank_of: bool):
+    """K6's tables for a GroupLayout (this module's or ans_tpu's):
+    rank_of=True for a scan fed mapped symbol ids, False for ranks."""
+    device = torch.device(device)
+    return GroupedEncDevice(
+        groups=_group_rows(layout, device),
+        bases=_i32(_bases(layout.rank_pivots, layout.rank_depth,
+                          layout.sigma), device),
+        rank_of=_i32(layout.rank_of, device) if rank_of else None,
+        depth=int(layout.rank_depth), sigma=int(layout.sigma),
+        frame_size=int(layout.frame_size), log2m=int(layout.log2m))
+
+
+def _grouped_to_device(gt: GroupedTable, device) -> GroupedDecDevice:
+    lay = gt.layout
+    table = gt.high if gt.high is not None else gt.val
+    NE = int(np.max(gt.nb)) if gt.nb is not None else 0
+    nb = np.asarray(gt.nb if NE else np.zeros(0), dtype=np.uint8)
+    return GroupedDecDevice(
+        groups=_group_rows(lay, device),
+        bases=_i32(_bases(lay.slot_pivots, lay.slot_depth, lay.frame_size),
+                   device),
+        table=_i32(table if table is not None else np.zeros(0), device),
+        nb=torch.from_numpy(nb.copy()).to(device),
+        depth=int(lay.slot_depth), sigma=int(lay.sigma),
+        frame_size=int(lay.frame_size), log2m=int(lay.log2m),
+        NR=max_renorm_rounds(int(lay.log2m)), NE=NE)

@@ -1,11 +1,13 @@
 """Device idle share of the prepared encoder and decoder on one GPU.
 
-    python3 -m ans_tpu_torch.profile_idle [--n N] [--lanes S] [--seed 42]
-                                          [--calls 5] [--trace DIR]
+    python3 -m ans_tpu_torch.profile_idle [--method ANSfold-2]
+        [--input bench|zipf20] [--n N] [--lanes S] [--seed 42]
+        [--calls 5] [--trace DIR]
 
-Stages bench.py's input (zipf(1.25), n = 2^25 values by default) with
-`models.prepare_encoder` / `models.prepare_decoder` (ANSfold-2) on
-cuda, then runs each `--calls` times under torch.profiler.  Each call is
+Stages an input (bench.py's zipf(1.25), or zipf20 for the grouped path;
+ans_tpu_torch/inputs.py; n = 2^25 values by default) with
+`models.prepare_encoder` / `models.prepare_decoder` (ANSfold-2 by
+default) on cuda, then runs each `--calls` times under torch.profiler.  Each call is
 one `record_function` span that ends with `torch.cuda.synchronize()`,
 so the span's length is the call's wall time.  Its busy time is the
 union of the device intervals (kernels, copies, memsets) inside the
@@ -30,13 +32,6 @@ import numpy as np
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def zipf_input(n: int, seed: int) -> np.ndarray:
-    """bench.py make_data() at size n."""
-    rng = np.random.default_rng(seed)
-    return (rng.zipf(1.25, size=n) - 1).clip(0, (1 << 28) - 1).astype(
-        np.uint32)
 
 
 def union_length(intervals) -> float:
@@ -96,9 +91,12 @@ def profile(fns: dict, calls: int, trace_dir: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--method", default="ANSfold-2")
+    ap.add_argument("--input", choices=("bench", "zipf20"), default="bench")
     ap.add_argument("--n", type=int, default=1 << 25)
     ap.add_argument("--lanes", type=int, default=4096)
-    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--seed", type=int, default=42,
+                    help="seed of the bench input")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--trace", type=Path, default=None,
                     help="directory to keep the Chrome trace in")
@@ -108,17 +106,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from . import models
+    from .inputs import bench_input, zipf20_input
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    x = zipf_input(args.n, args.seed)
-    pe = models.prepare_encoder("ANSfold-2", x, lanes=args.lanes,
+    x = (bench_input(args.n, args.seed) if args.input == "bench"
+         else zipf20_input(args.n))
+    pe = models.prepare_encoder(args.method, x, lanes=args.lanes,
                                 device="cuda")
     blob = pe.prelude + pe.to_bytes(*pe())
-    pd = models.prepare_decoder("ANSfold-2", blob, args.n, device="cuda")
+    pd = models.prepare_decoder(args.method, blob, args.n, device="cuda")
     if not np.array_equal(pd.to_host(pd()), x):
         print("profile_idle: the prepared decoder does not return the "
               "input", file=sys.stderr)
@@ -131,13 +131,15 @@ def main(argv=None) -> int:
         args.trace.mkdir(parents=True, exist_ok=True)
         res = profile(fns, args.calls, args.trace)
     for label, r in res.items():
-        print(f"[{card}] {label} (n={args.n}, S={args.lanes}): wall "
+        print(f"[{card}] {args.method} on {args.input}, {label} "
+              f"(n={args.n}, S={args.lanes}, engine {pd.engine}): wall "
               f"{r['wall_us']:.1f} us, busy {r['busy_us']:.1f} us per call, "
               f"idle share {r['idle_share']:.4f} over {r['calls']} calls")
         for name, us in r["ops_us"].items():
             print(f"    {us:10.1f} us  {name[:100]}")
-    print(json.dumps({"card": card, "n": args.n, "lanes": args.lanes,
-                      **res}))
+    print(json.dumps({"card": card, "method": args.method,
+                      "input": args.input, "engine": pd.engine, "n": args.n,
+                      "lanes": args.lanes, **res}))
     return 0
 
 

@@ -1,23 +1,36 @@
 """Write the golden lane-format fixtures with the JAX reference package.
 
     JAX_PLATFORMS=cpu python tests/fixtures/lane/make_fixtures.py \
-        [--full-width] [--full-width-input FILE --numpy VERSION]
+        [--full-width] [--grouped-full-width]
+        [--full-width-input FILE --numpy VERSION [--kind KIND]]
 
 Writes, next to this file:
-  * zipf20k.u32, wide5k.u32   inputs (little-endian u32), made from fixed
+  * *.u32                     inputs (little-endian u32), made from fixed
                               seeds;
-  * *.lane                    ans_tpu lane-engine blobs of those inputs;
-  * manifest.json             for each blob: input, method, lanes, n, sha256;
+  * *.lane                    ans_tpu lane-engine blobs of those inputs:
+                              ANSfold-1/2/4, and the large-alphabet routes
+                              (ANS with the tail escape onto the pivot
+                              search, ANS and ANSfold-7 on the grouped
+                              layout, ANSsint-80);
+  * manifest.json             for each blob: input, method, lanes, n, sha256
+                              and its frame;
   * fullwidth.json            (--full-width) the record of the full-width
                               case of bench.py: ANSfold-2 on zipf(1.25),
-                              n = 2^25, seed 42, S = 4096, honest frame.
+                              n = 2^25, seed 42, S = 4096, honest frame;
+  * fullwidth_zipf20.json     (--grouped-full-width) the records of the
+                              grouped path at full width, S = 4096:
+                              ANSfold-7 and ANS on zipf20 (Zipf(1) over
+                              2^20 values, n = 2^25, seed 0) and ANS on
+                              dense22 (n = 2^22, an alphabet of 2^16 the
+                              tail escape declines).
 
 numpy's zipf sampler is not stable across numpy releases (2.0.2 and 2.3.5
-draw different values from one seed), so fullwidth.json keeps one entry
-per input stream.  --full-width adds the stream of the numpy running the
-script; --full-width-input FILE --numpy VERSION adds the stream another
-numpy drew, read from FILE (lzma-compressed little-endian u32, e.g.
-`lzma.compress(make_data().tobytes())` on that machine).
+draw different values from one seed), so the full-width records keep one
+entry per input stream.  --full-width / --grouped-full-width add the
+streams of the numpy running the script; --full-width-input FILE --numpy
+VERSION --kind KIND adds the stream another numpy drew of input KIND
+(bench, zipf20 or dense22), read from FILE (lzma-compressed little-endian
+u32, e.g. `lzma.compress(make_data().tobytes())` on that machine).
 
 Every ans_tpu_torch build must encode each input to the same bytes and
 decode each blob back to its input (tests/test_torch_slice.py on the
@@ -38,17 +51,22 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
-# (blob file, input file, fidelity, lanes; None = the default lane count)
+# (blob file, input file, method, lanes; None = the default lane count)
 BLOBS = (
-    ("zipf20k.fold2.s32.lane", "zipf20k.u32", 2, 32),
-    ("zipf20k.fold2.s128.lane", "zipf20k.u32", 2, 128),
-    ("zipf20k.fold2.s4096.lane", "zipf20k.u32", 2, 4096),
-    ("zipf20k.fold1.lane", "zipf20k.u32", 1, None),
-    ("zipf20k.fold4.lane", "zipf20k.u32", 4, None),
-    ("wide5k.fold2.lane", "wide5k.u32", 2, None),
+    ("zipf20k.fold2.s32.lane", "zipf20k.u32", "ANSfold-2", 32),
+    ("zipf20k.fold2.s128.lane", "zipf20k.u32", "ANSfold-2", 128),
+    ("zipf20k.fold2.s4096.lane", "zipf20k.u32", "ANSfold-2", 4096),
+    ("zipf20k.fold1.lane", "zipf20k.u32", "ANSfold-1", None),
+    ("zipf20k.fold4.lane", "zipf20k.u32", "ANSfold-4", None),
+    ("wide5k.fold2.lane", "wide5k.u32", "ANSfold-2", None),
+    ("twice16k.ans.lane", "twice16k.u32", "ANS", None),
+    ("dense48k.ans.lane", "dense48k.u32", "ANS", 256),
+    ("dense48k.sint80.lane", "dense48k.u32", "ANSsint-80", None),
+    ("zipf60k.fold7.lane", "zipf60k.u32", "ANSfold-7", None),
 )
 
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
+DENSE_N = 1 << 22
 
 
 def zipf20k() -> np.ndarray:
@@ -68,6 +86,49 @@ def wide5k() -> np.ndarray:
     return x
 
 
+def twice16k() -> np.ndarray:
+    """Each value of 0..2^14-1 twice, shuffled: ANS takes the tail escape
+    (K = 1024, one exception byte) onto the pivot search."""
+    rng = np.random.default_rng(6)
+    return rng.permutation(np.repeat(np.arange(1 << 14), 2)).astype(np.uint32)
+
+
+def dense48k() -> np.ndarray:
+    """Every value of 0..11999 (the even ones twice) and 30000 Zipf(1.5)
+    draws over the same range: ANS stays on the grouped layout (the tail
+    escape declines), ANSsint-80 takes the escape."""
+    from ans_tpu.utils.zipf import zipf
+    head = np.concatenate([np.arange(12000), np.arange(0, 12000, 2)])
+    tail = zipf(np.random.default_rng(5), 30000, 12000, 1.5) - 1
+    return np.concatenate([head, tail]).astype(np.uint32)
+
+
+def zipf60k() -> np.ndarray:
+    """60000 Zipf(1) draws over 2^20 values: ANSfold-7 maps them to ~11k
+    live symbols, a grouped frame."""
+    from ans_tpu.utils.zipf import zipf
+    return zipf(np.random.default_rng(3), 60000, 1 << 20)
+
+
+def zipf20_input() -> np.ndarray:
+    """tools/bench_grouped.py's zipf20 at n = 2^25."""
+    from ans_tpu.utils.zipf import zipf
+    return zipf(np.random.default_rng(0), FULL_N, 1 << 20)
+
+
+def dense22_input() -> np.ndarray:
+    """n = 2^22: every value of 0..2^16-1 (the even ones twice) tiled over
+    n/2 values, then n/2 Zipf(1.5) draws over the same range (seed 8).
+    The tail frequencies alternate 1/2, so the tail escape declines and
+    ANS codes a 2^16-symbol grouped frame."""
+    from ans_tpu.utils.zipf import zipf
+    n = DENSE_N
+    head = np.concatenate([np.arange(1 << 16), np.arange(0, 1 << 16, 2)])
+    head = np.tile(head, -(-(n // 2) // len(head)))[: n // 2]
+    tail = zipf(np.random.default_rng(8), n - n // 2, 1 << 16, 1.5) - 1
+    return np.concatenate([head.astype(np.uint32), tail])
+
+
 def full_width_input() -> np.ndarray:
     """bench.py make_data(): zipf(1.25) over n = 2^25 values, seed 42."""
     rng = np.random.default_rng(FULL_SEED)
@@ -79,15 +140,31 @@ def sha256(b) -> str:
     return hashlib.sha256(bytes(b)).hexdigest()
 
 
-def lane_record(blob: bytes) -> dict:
-    """Frame, live alphabet and section cut of an ANSfold lane blob."""
+def lane_record(codec, blob: bytes) -> dict:
+    """Frame, live alphabet, slot layout and section cut of a lane blob
+    (sigma counts the prelude's live symbols, before any tail escape)."""
     from ans_tpu.models import framing
     from ans_tpu.reference_model.model import load_prelude
-    nfreqs, plen = load_prelude(blob)
-    S, _, payload, t_sec, sec_len = framing.parse(blob, plen)
+    nfreqs, _ = load_prelude(blob)
+    dt, off = codec._dec_table(blob)
+    S, _, payload, t_sec, sec_len = framing.parse(blob, off)
     return {"M": int(nfreqs.sum()), "sigma": int(np.count_nonzero(nfreqs)),
-            "lanes": S, "t_sec": int(t_sec), "sections": len(sec_len),
+            "grouped": dt.layout is not None, "lanes": S,
+            "t_sec": int(t_sec), "sections": len(sec_len),
             "stream_len": len(payload)}
+
+
+def codec_of(method: str, lanes=None):
+    """ans_tpu's lane codec `method` with `lanes` lanes."""
+    from ans_tpu.models import ans
+    kind, _, arg = method.partition("-")
+    if kind == "ANSfold":
+        return ans.AnsFold(int(arg), lanes=lanes)
+    if kind == "ANSsint":
+        return ans.AnsSint(int(arg), lanes=lanes)
+    if method == "ANS":
+        return ans.AnsInt(lanes=lanes)
+    raise ValueError(f"no fixture codec for {method!r}")
 
 
 def main(argv=None) -> None:
@@ -100,52 +177,95 @@ def main(argv=None) -> None:
                          "(lzma-compressed little-endian u32)")
     ap.add_argument("--numpy", default="unknown",
                     help="numpy version that drew --full-width-input")
+    ap.add_argument("--kind", default="bench", choices=sorted(KINDS),
+                    help="which input --full-width-input holds")
+    ap.add_argument("--grouped-full-width", action="store_true",
+                    help="add this numpy's zipf20 and dense22 streams to "
+                         "fullwidth_zipf20.json")
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    from ans_tpu.models.ans import AnsFold
 
-    inputs = {"zipf20k.u32": zipf20k(), "wide5k.u32": wide5k()}
+    inputs = {"zipf20k.u32": zipf20k(), "wide5k.u32": wide5k(),
+              "twice16k.u32": twice16k(), "dense48k.u32": dense48k(),
+              "zipf60k.u32": zipf60k()}
     for name, x in inputs.items():
         x.astype("<u4").tofile(HERE / name)
     manifest = []
-    for blob_name, inp, f, lanes in BLOBS:
+    for blob_name, inp, method, lanes in BLOBS:
         x = inputs[inp]
-        blob = AnsFold(f, lanes=lanes).encode(x)
+        codec = codec_of(method, lanes)
+        blob = codec.encode(x)
         (HERE / blob_name).write_bytes(blob)
         manifest.append({"blob": blob_name, "input": inp,
-                         "method": f"ANSfold-{f}", "lanes": lanes,
+                         "method": method, "lanes": lanes,
                          "n": len(x), "sha256": sha256(blob),
-                         **lane_record(blob)})
+                         **lane_record(codec, blob)})
     (HERE / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
 
     if args.full_width:
-        add_full_width(full_width_input(), np.__version__)
+        add_full_width("bench", full_width_input(), np.__version__)
+    if args.grouped_full_width:
+        add_full_width("zipf20", zipf20_input(), np.__version__)
+        add_full_width("dense22", dense22_input(), np.__version__)
     if args.full_width_input:
         import lzma
         raw = lzma.decompress(Path(args.full_width_input).read_bytes())
-        add_full_width(np.frombuffer(raw, dtype="<u4").astype(np.uint32),
+        add_full_width(args.kind,
+                       np.frombuffer(raw, dtype="<u4").astype(np.uint32),
                        args.numpy)
 
 
-def add_full_width(x: np.ndarray, numpy_version: str) -> None:
-    """Encode one full-width input stream and merge its entry into
-    fullwidth.json (keyed by the input's sha256)."""
-    from ans_tpu.models.ans import AnsFold
-    if len(x) != FULL_N:
-        raise ValueError(f"full-width input has {len(x)} values")
-    path = HERE / "fullwidth.json"
-    rec = (json.loads(path.read_text()) if path.exists() else
-           {"generator": "bench.py make_data(): np.random.default_rng(42)"
-                         ".zipf(1.25, 2**25) - 1, clipped to 2**28 - 1",
-            "method": "ANSfold-2", "n": FULL_N, "seed": FULL_SEED,
-            "lanes": FULL_LANES, "max_frame": None, "inputs": []})
-    blob = AnsFold(2, lanes=FULL_LANES, max_frame=None).encode(x)
-    entry = {"numpy": numpy_version, "input_sha256": sha256(x.tobytes()),
-             "blob_len": len(blob), "blob_sha256": sha256(blob),
-             **lane_record(blob)}
-    rec["inputs"] = [e for e in rec["inputs"]
-                     if e["input_sha256"] != entry["input_sha256"]]
-    rec["inputs"].append(entry)
+# input kind -> (record file, its header, the methods recorded, n)
+KINDS = {
+    "bench": ("fullwidth.json", {
+        "generator": "bench.py make_data(): np.random.default_rng(42)"
+                     ".zipf(1.25, 2**25) - 1, clipped to 2**28 - 1",
+        "method": "ANSfold-2", "n": FULL_N, "seed": FULL_SEED,
+        "lanes": FULL_LANES, "max_frame": None}, ("ANSfold-2",), FULL_N),
+    "zipf20": ("fullwidth_zipf20.json", None, ("ANSfold-7", "ANS"), FULL_N),
+    "dense22": ("fullwidth_zipf20.json", None, ("ANS",), DENSE_N),
+}
+
+ZIPF20_HEADER = {
+    "generators": {
+        "zipf20": "ans_tpu.utils.zipf.zipf(np.random.default_rng(0), "
+                  "2**25, 2**20)",
+        "dense22": "n = 2**22: np.arange(2**16) then np.arange(0, 2**16, "
+                   "2), tiled to n/2 values, then ans_tpu.utils.zipf.zipf("
+                   "np.random.default_rng(8), n/2, 2**16, 1.5) - 1"},
+    "lanes": FULL_LANES, "max_frame": None}
+
+
+def add_full_width(kind: str, x: np.ndarray, numpy_version: str) -> None:
+    """Encode one full-width input stream with each of its methods and
+    merge the entries into the kind's record file (keyed by the input's
+    sha256 and the method)."""
+    fname, header, methods, n = KINDS[kind]
+    if len(x) != n:
+        raise ValueError(f"{kind} input has {len(x)} values, not {n}")
+    path = HERE / fname
+    rec = (json.loads(path.read_text()) if path.exists()
+           else {**(header or ZIPF20_HEADER), "inputs": []})
+    input_sha = sha256(x.tobytes())
+    for method in methods:
+        codec = codec_of(method, FULL_LANES)
+        blob = codec.encode(x)
+        entry = {"numpy": numpy_version, "input_sha256": input_sha,
+                 "blob_len": len(blob), "blob_sha256": sha256(blob),
+                 **lane_record(codec, blob)}
+        if kind == "dense22":
+            # the cell exists to run ANS on the grouped layout: the tail
+            # escape must decline it
+            from ans_tpu.ops.escape import plan_from_freqs
+            from ans_tpu.reference_model.model import load_prelude
+            assert plan_from_freqs(load_prelude(blob)[0]) is None
+            assert entry["grouped"]
+        if header is None:
+            entry = {"input": kind, "method": method, **entry}
+        rec["inputs"] = [e for e in rec["inputs"]
+                         if (e["input_sha256"], e.get("method", method))
+                         != (input_sha, method)]
+        rec["inputs"].append(entry)
     path.write_text(json.dumps(rec, indent=1) + "\n")
 
 

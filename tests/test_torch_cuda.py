@@ -5,9 +5,11 @@ card, run them without the JAX conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-chip_smoke.py covers the main path at full width; these cover the edges:
-lane counts from 1 to 2^13 (one to eight lanes per decode thread), three
-renorm rounds, three exception bytes, and corrupt streams.
+chip_smoke.py covers the main paths at full width; these cover the edges:
+lane counts from 1 to 2^14 (one to sixteen lanes per decode thread),
+three renorm rounds, three exception bytes, corrupt streams, and for the
+grouped kernels K5/K6 one-group frames, ~2^12 groups, per-rank tables too
+large for shared memory and out-of-range ranks.
 """
 
 import json
@@ -19,8 +21,8 @@ import torch
 
 from ans_tpu.reference_model import mappings as map_np
 from ans_tpu.reference_model.model import adjust_freqs
-from ans_tpu_torch.models.ans import AnsFold, _stage_ts
-from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
+from ans_tpu_torch.models.ans import AnsFold, AnsInt, _stage, _stage_ts
+from ans_tpu_torch.ops import decode, encode, grouped, lane_codec, place, tables
 from ans_tpu_torch.ops.mappings import fold_map_hist
 
 LANE_FIXTURES = Path(__file__).parent / "fixtures" / "lane"
@@ -142,9 +144,155 @@ def test_wrapper_refuses_mixed_devices(cuda):
 @pytest.mark.parametrize("rec", json.loads(
     (LANE_FIXTURES / "manifest.json").read_text()), ids=lambda r: r["blob"])
 def test_golden_fixture_on_card(cuda, rec):
+    from ans_tpu_torch import models
     x = np.fromfile(LANE_FIXTURES / rec["input"], dtype="<u4")
     blob = (LANE_FIXTURES / rec["blob"]).read_bytes()
-    codec = AnsFold(int(rec["method"].split("-")[1]), lanes=rec["lanes"],
-                    device=cuda)
+    codec = models.get(rec["method"], lanes=rec["lanes"], device=cuda)
     assert codec.encode(x) == blob
     np.testing.assert_array_equal(codec.decode(blob, len(x)), x)
+
+
+# --------------------------------------------------------------------------
+# the grouped kernels: K6 (encode_scan_grouped) and K5 (decode_grouped)
+# --------------------------------------------------------------------------
+
+def _grouped_run(m_ts, nb_ts, ex_ts, n, enc, dec):
+    """K6, K2 and K5 against their plain versions on the same tensors."""
+    T = m_ts.shape[0]
+    counts = (encode.grouped_launches, decode.grouped_launches)
+    packed, states = encode.encode_scan_grouped(m_ts, n, enc)
+    pp, ps = lane_codec.encode_scan_grouped_plain(m_ts, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+    rb, total = lane_codec.encode_totals(packed, nb_ts, n)
+    stream = place.place(packed, nb_ts, ex_ts, n, rb, int(total))
+    out = decode.decode_grouped(stream, states, dec, n, T)
+    assert torch.equal(out, lane_codec.decode_grouped_plain(stream, states,
+                                                            dec, n, T))
+    assert (encode.grouped_launches, decode.grouped_launches) == tuple(
+        c + 1 for c in counts)
+    return out.cpu().numpy().view(np.uint32).reshape(-1)[:n], stream, states
+
+
+def _codec_run(codec, x, S, cuda):
+    """A codec's own staging and tables (encode as encode() does, decode
+    with the table the prelude gives)."""
+    mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(x)
+    enc, staged = _stage(mapped, k, low, len(x), ffreqs, raw, S)
+    assert isinstance(enc, tables.GroupedEncDevice)
+    table, _ = codec._dec_table(codec.encode(x))
+    dec = tables.to_device(table, cuda)
+    return _grouped_run(*staged, len(x), enc, dec), dec
+
+
+def _dense_values(n, seed):
+    """Every value of 0..11999 present, tail frequencies mixed so that the
+    tail escape declines (ANS stays on the grouped layout)."""
+    rng = np.random.default_rng(seed)
+    head = np.concatenate([np.arange(12000), np.arange(0, 12000, 2)])
+    tail = (rng.zipf(1.5, size=max(n - len(head), 0)) - 1).clip(0, 11999)
+    return np.concatenate([head, tail])[:n].astype(np.uint32)
+
+
+@pytest.mark.parametrize("S", [1, 32, 4096, 16384])
+def test_grouped_fold_matches_plain(cuda, S):
+    """ANSfold-8 over ~14k live symbols: K6 with the in-kernel symbol ->
+    rank map, K5 with high/nb tables in shared memory."""
+    n = max(20000, 20 * S + 7)
+    x = np.random.default_rng(S).integers(0, 1 << 15, size=n).astype(
+        np.uint32)
+    (out, *_), dec = _codec_run(AnsFold(8, device=cuda), x, S, cuda)
+    assert dec.table.numel() == dec.sigma
+    np.testing.assert_array_equal(out, x)
+
+
+@pytest.mark.parametrize("S", [32, 4096, 16384])
+def test_grouped_values_match_plain(cuda, S):
+    """ANS on a dense alphabet the escape declines: K6 on ranks, K5 with
+    a value table."""
+    x = _dense_values(max(48000, 20 * S + 7), S)
+    codec = AnsInt(device=cuda)
+    (out, *_), dec = _codec_run(codec, x, S, cuda)
+    assert dec.NE == 0 and dec.table.numel() == dec.sigma
+    np.testing.assert_array_equal(out, x)
+
+
+def _frame_run(nfreqs, S, cuda, n=30000, seed=0, exceptions=False):
+    """A hand-built grouped frame: values drawn from nfreqs; K6 on
+    ranks; K5 with the value table (or high = sym << 8 and one exception
+    byte, the low byte)."""
+    rng = np.random.default_rng(seed)
+    nf = np.asarray(nfreqs, dtype=np.uint64)
+    syms = rng.choice(len(nf), size=n, p=nf / nf.sum()).astype(np.uint32)
+    lay = grouped.build_group_layout(nf)
+    enc = tables.grouped_enc_to_device(lay, cuda, rank_of=False)
+    ranks = torch.from_numpy(lay.rank_of[syms].view(np.int32)).to(cuda)
+    T = lane_codec.lane_steps(n, S)
+    high = nb = None
+    if exceptions:
+        low = rng.integers(0, 256, size=n).astype(np.uint32)
+        x = (syms << np.uint32(8)) | low
+        ids = np.arange(len(nf), dtype=np.uint32)
+        high, nb = ids << np.uint32(8), np.ones(len(nf), np.uint32)
+        k = torch.ones_like(ranks)
+        lw = torch.from_numpy(low.view(np.int32)).to(cuda)
+    else:
+        x = syms
+        k = lw = torch.zeros_like(ranks)
+    dec = tables.to_device(tables.build_grouped_table(nf, high, nb), cuda)
+    staged = _stage_ts(ranks, k, lw, n, S, T)
+    out, stream, states = _grouped_run(*staged, n, enc, dec)
+    np.testing.assert_array_equal(out, x)
+    return lay, dec, stream, states, T, enc
+
+
+@pytest.mark.parametrize("S", [32, 4096])
+def test_grouped_one_group(cuda, S):
+    """Every live symbol has one frequency: NG = 1, no search levels, and
+    the rank is the value (K5 without a table)."""
+    lay, dec, *_ = _frame_run(np.ones(1 << 14, np.uint64), S, cuda)
+    assert lay.num_groups == 1 and dec.depth == 0
+    assert dec.table.numel() == 0
+
+
+def _many_groups_freqs(seed=3):
+    """2892 distinct frequencies plus 8192 symbols of frequency 1, summing
+    to 2^22: NG near its sqrt(2M) bound, K6's tables past 48 KB."""
+    k = 2892
+    f = np.concatenate([np.arange(1, k + 1), np.ones(8192, np.int64)])
+    f[k - 1] += (1 << 22) - int(f.sum())
+    return np.random.default_rng(seed).permutation(f).astype(np.uint64)
+
+
+def test_grouped_many_groups(cuda):
+    nf = _many_groups_freqs()
+    lay, dec, *_ = _frame_run(nf, 4096, cuda, n=60000)
+    assert lay.num_groups == 2892 and lay.log2m == 22
+    assert 16 * lay.num_groups + 4 * ((1 << lay.rank_depth) + 1) > 48 * 1024
+
+
+@pytest.mark.parametrize("exceptions", [False, True])
+def test_grouped_table_in_global_memory(cuda, exceptions):
+    """sigma = 60000: the per-rank table (240 KB, or 300 KB with nb)
+    does not fit in shared memory and is read from global memory."""
+    f = np.ones(60000, np.int64)
+    f[:5536] = 2
+    nf = np.random.default_rng(4).permutation(f).astype(np.uint64)
+    assert int(nf.sum()) == 1 << 16
+    _, dec, *_ = _frame_run(nf, 4096, cuda, n=80000, exceptions=exceptions)
+    assert 4 * dec.sigma > 220 * 1024 and dec.NE == int(exceptions)
+
+
+def test_grouped_corrupt_stream_and_rank_raise(cuda):
+    nf = _many_groups_freqs()
+    lay, dec, stream, states, T, enc = _frame_run(nf, 1024, cuda)
+    with pytest.raises(ValueError, match="corrupt"):
+        decode.decode_grouped(stream[: stream.numel() // 2].clone(), states,
+                              dec, 30000, T)
+    bad = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    bad[1, 5] = lay.sigma
+    with pytest.raises(ValueError, match="outside"):
+        encode.encode_scan_grouped(bad, 64, enc)
+    byval = tables.grouped_enc_to_device(lay, cuda, rank_of=True)
+    bad[1, 5] = len(lay.rank_of)
+    with pytest.raises(ValueError, match="outside"):
+        encode.encode_scan_grouped(bad, 64, byval)

@@ -1,6 +1,7 @@
 """ans_tpu_torch host layers against ans_tpu: the NumPy copies of the
-lane-count policy, the fmt-2 framing and the table builders must equal
-the reference's exactly, and the package must import without JAX."""
+lane-count policy, the fmt-2 framing, the table builders, the grouped
+slot layout and the tail-escape plan must equal the reference's exactly,
+and the package must import without JAX."""
 
 import os
 import subprocess
@@ -13,11 +14,14 @@ import torch
 
 from ans_tpu.models import config as jconfig
 from ans_tpu.models import framing as jframing
+from ans_tpu.ops import escape as jescape
 from ans_tpu.ops import grouped as jgrouped
 from ans_tpu.ops import tables as jtables
+from ans_tpu.reference_model.model import adjust_freqs
+from ans_tpu.utils.zipf import zipf
 from ans_tpu_torch.csrc import build
 from ans_tpu_torch.models import config, framing
-from ans_tpu_torch.ops import tables
+from ans_tpu_torch.ops import escape, grouped, tables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,11 +157,14 @@ def test_table_limits():
         assert tables.max_renorm_rounds(log2m) == \
             jtables.max_renorm_rounds(log2m)
     assert tables.A_L == jtables.A_L
-    assert tables.GROUPED_MIN_SIGMA == jgrouped.GROUPED_MIN_SIGMA
+    assert grouped.GROUPED_MIN_SIGMA == jgrouped.GROUPED_MIN_SIGMA
     for sigma in (1, 8192, 8193, 20000):
         nf = np.ones(sigma, np.uint64)
-        assert tables.use_grouped_layout(nf) == \
+        assert grouped.use_grouped_layout(nf) == \
             jgrouped.use_grouped_layout(nf)
+    for name in ("ESCAPE_MIN_SIGMA", "K_GRID", "MAX_VARIANTS",
+                 "REL_LOSS_BUDGET"):
+        assert getattr(escape, name) == getattr(jescape, name), name
     with pytest.raises(ValueError):
         tables.build_enc_table(np.array([3, 2], np.uint64))
     with pytest.raises(ValueError):
@@ -192,7 +199,8 @@ def test_to_device_accepts_reference_tables(kind):
 def test_imports_without_jax():
     """The port runs where JAX is absent: importing every module with
     `jax` blocked must work, and must load no JAX-importing part of
-    ans_tpu (only ans_tpu.constants and ans_tpu.reference_model)."""
+    ans_tpu (only ans_tpu.constants and ans_tpu.reference_model); the
+    grouped layout and the tail escape run there too."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -200,12 +208,19 @@ def test_imports_without_jax():
         import ans_tpu_torch.models, ans_tpu_torch.models.engine
         import ans_tpu_torch.ops.encode, ans_tpu_torch.ops.place
         import ans_tpu_torch.ops.decode, ans_tpu_torch.ops.mappings
+        import ans_tpu_torch.ops.grouped, ans_tpu_torch.ops.escape
         import ans_tpu_torch.csrc.build, ans_tpu_torch.profile_idle
         import numpy as np
         from ans_tpu_torch import models
         x = (np.arange(3000) % 700).astype(np.uint32) ** 2
         codec = models.get("ANSfold-2", device="cpu")
         assert (codec.decode(codec.encode(x), len(x)) == x).all()
+        twice = np.repeat(np.arange(1 << 14), 2).astype(np.uint32)
+        wide = np.arange(9000, dtype=np.uint32) * 5
+        for name, v in (("ANS", twice), ("ANSsint-80", wide),
+                        ("ANSfold-8", wide)):
+            codec = models.get(name, device="cpu")
+            assert (codec.decode(codec.encode(v), len(v)) == v).all()
         loaded = sorted(m for m in sys.modules
                         if m.startswith("ans_tpu.") and sys.modules[m])
         # ans_tpu.native is reference_model's optional C++ backend
@@ -253,10 +268,13 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(build, "_libs", {})
-    for name in ("encode_scan", "place", "decode_search"):
+    for name in build.KERNELS:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.load(name)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_all()
     assert not (tmp_path / "_build").exists()
+    assert all((build.CSRC / f"{name}.cu").exists() for name in build.KERNELS)
 
 
 def test_build_names_library_by_source():
@@ -266,3 +284,111 @@ def test_build_names_library_by_source():
     assert a.parent == build.BUILD_DIR and a.name.startswith(
         "libdecode_search-")
     assert build._library_path("place") != a
+
+
+# --------------------------------------------------------------------------
+# the grouped layout and the tail escape
+# --------------------------------------------------------------------------
+
+def _large_freqs(kind: str) -> np.ndarray:
+    """Frequency vectors for the layout and escape copies: adversarial
+    (the most distinct frequencies a frame allows), uniform, zipf, the
+    2^13 / 2^13+1 boundary, sparse with gaps, a mixed-frequency tail the
+    escape declines and a byte-aligned uniform tail it takes."""
+    if kind == "adversarial":
+        f = np.arange(1, 90, dtype=np.uint64)
+        return np.append(f, (1 << 12) - int(f.sum())).astype(np.uint64)
+    if kind == "uniform":
+        return np.ones(1 << 14, np.uint64)
+    if kind in ("boundary", "boundary+1"):
+        nf = np.ones((1 << 13) + (kind == "boundary+1"), np.uint64)
+        nf[0] += (1 << 14) - int(nf.sum())
+        return nf
+    if kind == "zipf":
+        x = zipf(np.random.default_rng(0), 200000, 1 << 20)
+    elif kind == "sparse":
+        x = np.random.default_rng(1).integers(0, 1 << 18, size=30000) * 3
+    elif kind == "mixed_tail":
+        x = np.concatenate([np.arange(12000), np.arange(0, 12000, 2),
+                            np.random.default_rng(8).integers(0, 500, 9000)])
+    else:  # "twice"
+        x = np.repeat(np.arange(1 << 14), 2)
+    x = x.astype(np.uint32)
+    freqs = np.bincount(x).astype(np.uint64)
+    return adjust_freqs(freqs, int(x.max()), False, 1)
+
+
+LARGE_KINDS = ["adversarial", "uniform", "boundary", "boundary+1", "zipf",
+               "sparse", "mixed_tail", "twice"]
+
+
+@pytest.mark.parametrize("kind", LARGE_KINDS)
+def test_group_layout(kind):
+    nf = _large_freqs(kind)
+    got, want = grouped.build_group_layout(nf), jgrouped.build_group_layout(nf)
+    _assert_same(got, want, ["perm", "rank_of", "g_f", "g_rank0", "g_slot0",
+                             "g_magic", "slot_depth", "rank_depth", "sigma",
+                             "frame_size", "log2m", "num_groups"])
+    for a, b in ((got.slot_pivots, want.slot_pivots),
+                 (got.rank_pivots, want.rank_pivots)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == y.dtype
+    assert grouped.use_grouped_layout(nf) == jgrouped.use_grouped_layout(nf)
+
+
+@pytest.mark.parametrize("kind", LARGE_KINDS + ["small"])
+def test_escape_plan(kind):
+    nf = _large_freqs(kind) if kind != "small" else np.ones(100, np.uint64)
+    got, want = escape.plan_from_freqs(nf), jescape.plan_from_freqs(nf)
+    assert (got is None) == (want is None)
+    if kind == "twice":
+        assert got is not None  # a byte-aligned uniform tail escapes
+    if kind in ("mixed_tail", "small", "boundary"):
+        assert got is None
+    if got is None:
+        return
+    _assert_same(got, want, ["K", "nb", "var_highs", "frame_freqs",
+                             "sym_high", "sym_nb", "rank_of", "loss_bits",
+                             "sigma", "num_variants"])
+    values = np.flatnonzero(nf).astype(np.uint32)
+    for a, b in zip(got.map_values(values), want.map_values(values)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["adversarial", "zipf", "sparse"])
+def test_grouped_device_tables(kind):
+    """The grouped device layouts hold the layout's own arrays: group rows
+    [f, magic, slot0, rank0], the pivot levels laid out like the search
+    bases, the per-rank output table; ans_tpu's layout lays out alike."""
+    nf = _large_freqs(kind)
+    lay = grouped.build_group_layout(nf)
+    NG = lay.num_groups
+    for src in (lay, jgrouped.build_group_layout(nf)):
+        enc = tables.grouped_enc_to_device(src, "cpu", rank_of=True)
+        rows = enc.groups.numpy().view(np.uint32)
+        np.testing.assert_array_equal(
+            rows, np.stack([lay.g_f, lay.g_magic, lay.g_slot0, lay.g_rank0],
+                           axis=1))
+        assert enc.bases.numel() == (1 << lay.rank_depth) + 1
+        np.testing.assert_array_equal(enc.bases.numpy()[:NG], lay.g_rank0)
+        assert (enc.bases.numpy()[NG:] == lay.sigma).all()
+        np.testing.assert_array_equal(enc.rank_of.numpy(), lay.rank_of)
+    ids = np.arange(len(nf), dtype=np.uint32)
+    for high, nb in ((None, None), (ids * np.uint32(7), ids % np.uint32(4))):
+        gt = tables.build_grouped_table(nf, high, nb)
+        dec = tables.to_device(gt, "cpu")
+        np.testing.assert_array_equal(dec.bases.numpy()[:NG], lay.g_slot0)
+        assert (dec.bases.numpy()[NG:] == lay.frame_size).all()
+        if high is None:
+            identity = (lay.perm == np.arange(lay.sigma)).all()
+            want = [] if identity else lay.perm
+            assert dec.NE == 0 and dec.nb.numel() == 0
+        else:
+            want = high[lay.perm]
+            assert dec.NE == 3 and dec.nb.dtype == torch.uint8
+            np.testing.assert_array_equal(dec.nb.numpy(), nb[lay.perm])
+        np.testing.assert_array_equal(dec.table.numpy().view(np.uint32),
+                                      want)
+        assert dec.NR == tables.max_renorm_rounds(lay.log2m)

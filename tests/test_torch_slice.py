@@ -1,21 +1,31 @@
-"""The ported slice as a whole, on the CPU: ans_tpu_torch's ANSfold codecs
-write the same bytes as ans_tpu's, each decodes the other's blobs, the
-prepared API reproduces encode(), the committed golden fixtures
-round-trip, and what is not ported refuses clearly."""
+"""The ported slices as a whole, on the CPU: ans_tpu_torch's ANSfold, ANS
+and ANSsint codecs write the same bytes as ans_tpu's on every route
+(pivot search, the frequency-grouped layout, the tail escape), each
+decodes the other's blobs, the prepared API reproduces encode() and
+takes ans_tpu's engine, the committed golden fixtures round-trip, and
+what is not ported refuses clearly."""
 
+import hashlib
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from ans_tpu.models import engine as ref_engine
 from ans_tpu.models.ans import AnsFold as RefAnsFold
-from ans_tpu_torch import models
-from ans_tpu_torch.models.ans import AnsFold
+from ans_tpu.models.ans import AnsInt as RefAnsInt
+from ans_tpu.models.ans import AnsSint as RefAnsSint
+from ans_tpu.ops import escape as ref_escape
+from ans_tpu.reference_model.model import load_prelude
+from ans_tpu.utils.zipf import zipf as ref_zipf
+from ans_tpu_torch import inputs, models
+from ans_tpu_torch.models.ans import AnsFold, AnsInt
 from ans_tpu_torch.ops import decode, encode, place, tables
 
 LANE_FIXTURES = Path(__file__).parent / "fixtures" / "lane"
 MANIFEST = json.loads((LANE_FIXTURES / "manifest.json").read_text())
+ZIPF20 = json.loads((LANE_FIXTURES / "fullwidth_zipf20.json").read_text())
 
 
 @pytest.mark.parametrize("fidelity", [1, 2, 4])
@@ -60,13 +70,11 @@ def test_golden_fixture(rec):
     x = np.fromfile(LANE_FIXTURES / rec["input"], dtype="<u4")
     blob = (LANE_FIXTURES / rec["blob"]).read_bytes()
     assert len(x) == rec["n"]
-    if rec["lanes"] is None:
-        codec = models.get(rec["method"], device="cpu")
-    else:
-        codec = AnsFold(int(rec["method"].split("-")[1]), lanes=rec["lanes"],
-                        device="cpu")
+    codec = models.get(rec["method"], lanes=rec["lanes"], device="cpu")
     np.testing.assert_array_equal(codec.decode(blob, len(x)), x)
     assert codec.encode(x) == blob
+    table, _ = codec._dec_table(blob)
+    assert isinstance(table, tables.GroupedTable) == rec["grouped"]
 
 
 def test_full_width_record():
@@ -79,17 +87,56 @@ def test_full_width_record():
         assert (e["M"], e["t_sec"], e["sections"]) == (1 << 15, 512, 16)
 
 
+@pytest.mark.parametrize("rec", ZIPF20["inputs"],
+                         ids=lambda e: f"{e['input']}-{e['method']}")
+def test_grouped_full_width_record(rec):
+    """The grouped path's full-width records: ANSfold-7 on zipf20 is a
+    grouped frame, ANS on zipf20 takes the tail escape onto the pivot
+    search, ANS on dense22 is a grouped frame the escape declines."""
+    assert rec["lanes"] == 4096 and ZIPF20["lanes"] == 4096
+    want = {("zipf20", "ANSfold-7"): (True, 1 << 17),
+            ("zipf20", "ANS"): (False, 1 << 22),
+            ("dense22", "ANS"): (True, 1 << 19)}
+    assert (rec["grouped"], rec["M"]) == want[rec["input"], rec["method"]]
+
+
+def test_card_inputs_are_the_reference_inputs():
+    """The card scripts draw the grouped path's inputs with the port's
+    copy of ans_tpu/utils/zipf.py (ans_tpu_torch.inputs): the copy draws
+    the same values, and its dense22 is the recorded stream."""
+    for N, q in ((1 << 20, 1.0), (1 << 16, 1.5), (100, 2.0)):
+        np.testing.assert_array_equal(
+            inputs.zipf_sample(np.random.default_rng(3), 50000, N, q),
+            ref_zipf(np.random.default_rng(3), 50000, N, q))
+    dense = inputs.dense_input(1 << 22)
+    sha = hashlib.sha256(dense.tobytes()).hexdigest()
+    assert sha in {e["input_sha256"] for e in ZIPF20["inputs"]
+                   if e["input"] == "dense22"}
+
+
 def test_registry():
-    assert models.available() == [f"ANSfold-{f}" for f in range(1, 9)]
+    assert models.available() == sorted(
+        ["ANS"] + [f"ANSfold-{f}" for f in range(1, 9)]
+        + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)])
     codec = models.get("ANSfold-3", device="cpu")
     assert codec.fidelity == 3 and codec.name == "ANSfold-3"
+    assert models.get("ANSfold-3", lanes=64, device="cpu").lanes == 64
     with pytest.raises(TypeError):
         models.get("ANSfold-2")  # the device is never implicit
 
 
-@pytest.mark.parametrize("name", ["ANS", "ANSmsb", "ANSrfold-2",
-                                  "ANSsint-80", "ANSsmsb-5", "vbyte",
-                                  "streamvbyteANS", "shuff",
+@pytest.mark.parametrize("name,h", [("ANS", 1), ("ANSsint-80", 80)])
+def test_registry_int_methods(name, h):
+    """ANS and ANSsint-h are AnsInt with ans_tpu's H_approx knob."""
+    codec = models.get(name, lanes=128, device="cpu")
+    assert isinstance(codec, AnsInt) and codec.name == name
+    assert (codec.h_approx, codec.lanes) == (h, 128)
+    ref = RefAnsInt(lanes=128) if h == 1 else RefAnsSint(h, lanes=128)
+    assert (codec.name, codec.h_approx) == (ref.name, ref.h_approx)
+
+
+@pytest.mark.parametrize("name", ["ANSmsb", "ANSrfold-2", "ANSsmsb-5",
+                                  "vbyte", "streamvbyteANS", "shuff",
                                   "pseudo_adaptive", "no-such-method"])
 def test_unported_names_raise(name):
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -120,37 +167,138 @@ def _grouped_input():
 
 
 def test_grouped_encode_raises():
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        AnsFold(8, device="cpu").encode(_grouped_input())
-    with pytest.raises(NotImplementedError):
-        models.prepare_encoder("ANSfold-8", _grouped_input(), lanes=128,
-                               device="cpu")
+    """(Named for what the grouped layout did before K5/K6 were ported.)
+    The grouped frame now encodes, one-shot and prepared, to ans_tpu's
+    bytes."""
+    x = _grouped_input()
+    blob = AnsFold(8, device="cpu").encode(x)
+    assert blob == RefAnsFold(8).encode(x)
+    pe = models.prepare_encoder("ANSfold-8", x, lanes=32, device="cpu")
+    assert pe.prelude + pe.to_bytes(*pe()) == blob
 
 
 def test_grouped_decode_raises():
+    """(Named for what the grouped layout did before K5/K6 were ported.)
+    ans_tpu's grouped blob now decodes, on the grouped engine."""
     x = _grouped_input()
     blob = RefAnsFold(8).encode(x)
-    with pytest.raises(NotImplementedError, match="grouped"):
-        AnsFold(8, device="cpu").decode(blob, len(x))
+    codec = AnsFold(8, device="cpu")
+    assert isinstance(codec._dec_table(blob)[0], tables.GroupedTable)
+    np.testing.assert_array_equal(codec.decode(blob, len(x)), x)
 
 
 def test_search_engine_limit():
     """sigma = 2^13 is the pivot search's; one more symbol is grouped."""
-    tables.require_ungrouped(np.ones(1 << 13, np.uint64))
-    with pytest.raises(NotImplementedError, match="grouped"):
-        tables.require_ungrouped(np.ones((1 << 13) + 1, np.uint64))
+    for sigma, kind in ((1 << 13, tables.SearchTable),
+                        ((1 << 13) + 1, tables.GroupedTable)):
+        nf = np.ones(sigma, np.uint64)
+        nf[0] += (1 << 14) - sigma
+        t = tables.build_dec_table(nf)
+        assert isinstance(t, kind)
+    assert t.layout.sigma == (1 << 13) + 1
+
+
+def _twice16k():
+    """Each of 0..2^14-1 twice: ANS takes the tail escape (K = 1024)."""
+    return np.random.default_rng(6).permutation(
+        np.repeat(np.arange(1 << 14), 2)).astype(np.uint32)
+
+
+def _dense():
+    """0..11999 (evens twice) + Zipf(1.5) draws: the escape declines."""
+    head = np.concatenate([np.arange(12000), np.arange(0, 12000, 2)])
+    tail = ref_zipf(np.random.default_rng(5), 12000, 12000, 1.5) - 1
+    return np.concatenate([head, tail]).astype(np.uint32)
+
+
+def _fold5_wide():
+    """Every fold-5 symbol of all three exception widths: ~12k live."""
+    rng = np.random.default_rng(2)
+    parts = [np.arange(4096), np.arange(4096, 1 << 20, 256),
+             np.arange(1 << 20, 1 << 28, 1 << 16)]
+    x = np.concatenate([p + rng.integers(0, 256, size=len(p))
+                        for p in parts])
+    return rng.permutation(np.concatenate([x, x])).astype(np.uint32)
+
+
+INT_INPUTS = {"escape": _twice16k, "grouped": _dense,
+              "small": lambda: (np.random.default_rng(4).zipf(1.3, 20000)
+                                % 3000).astype(np.uint32)}
+
+
+@pytest.mark.parametrize("name", ["ANS", "ANSsint-80"])
+@pytest.mark.parametrize("kind", sorted(INT_INPUTS))
+def test_int_methods_blob_identical_and_cross_decode(name, kind):
+    x = INT_INPUTS[kind]()
+    h = 1 if name == "ANS" else 80
+    ref = RefAnsInt() if h == 1 else RefAnsSint(h)
+    port = models.get(name, device="cpu")
+    blob = port.encode(x)
+    assert blob == ref.encode(x)
+    np.testing.assert_array_equal(port.decode(blob, len(x)), x)
+    np.testing.assert_array_equal(ref.decode(blob, len(x)), x)
+    nfreqs, _ = load_prelude(blob)
+    plan = ref_escape.plan_from_freqs(nfreqs)
+    table, _ = port._dec_table(blob)
+    if (name, kind) == ("ANS", "escape"):
+        assert plan is not None and isinstance(table, tables.SearchTable)
+    if (name, kind) == ("ANS", "grouped"):
+        assert plan is None and isinstance(table, tables.GroupedTable)
+    if kind == "small":
+        assert plan is None and isinstance(table, tables.SearchTable)
+
+
+FOLD_INPUTS = {5: _fold5_wide, 7: lambda: ref_zipf(
+    np.random.default_rng(3), 40000, 1 << 20), 8: _grouped_input}
+
+
+@pytest.mark.parametrize("fidelity", sorted(FOLD_INPUTS))
+def test_wide_fold_blob_identical_and_cross_decode(fidelity):
+    """ANSfold-5/7/8 on inputs whose mapped alphabet is grouped."""
+    x = FOLD_INPUTS[fidelity]()
+    port, ref = AnsFold(fidelity, lanes=128, device="cpu"), RefAnsFold(
+        fidelity, lanes=128)
+    blob = port.encode(x)
+    assert blob == ref.encode(x)
+    assert isinstance(port._dec_table(blob)[0], tables.GroupedTable)
+    np.testing.assert_array_equal(port.decode(blob, len(x)), x)
+    np.testing.assert_array_equal(ref.decode(blob, len(x)), x)
+
+
+@pytest.mark.parametrize("name,make", [
+    ("ANS", _twice16k), ("ANS", _dense), ("ANSsint-80", _dense),
+    ("ANSfold-8", _grouped_input)])
+def test_prepared_api_and_engine(monkeypatch, name, make):
+    """The prepared encoder reproduces encode(), and the prepared decoder
+    takes the engine ans_tpu's own choice gives the same table (grouped
+    or search: the layout decides both)."""
+    x = make()
+    blob = models.get(name, lanes=128, device="cpu").encode(x)
+    pe = models.prepare_encoder(name, x, lanes=128, device="cpu")
+    assert pe.prelude + pe.to_bytes(*pe()) == blob
+    pd = models.prepare_decoder(name, blob, len(x), device="cpu")
+    np.testing.assert_array_equal(pd.to_host(pd()), x)
+    monkeypatch.setenv("ANS_TPU_INTERPRET", "1")  # the Pallas engines' gate
+    from ans_tpu import models as ref_models
+    dt, _ = ref_models.get(name)._dec_table(blob)
+    want = ref_engine.choose_decode_engine(dt, 128)
+    assert want in ("grouped", "search")
+    assert pd.engine == want
 
 
 def test_cpu_path_launches_no_kernel(datasets):
     """CPU tensors take the plain versions: no counter moves."""
     x = datasets["zipf12"]
-    counts = (encode.launches, place.launches, decode.launches)
-    codec = models.get("ANSfold-2", device="cpu")
-    codec.decode(codec.encode(x), len(x))
-    pe = models.prepare_encoder("ANSfold-2", x, lanes=32, device="cpu")
-    pe()
-    assert (encode.launches, place.launches, decode.launches) == counts \
-        == (0, 0, 0)
+    counts = (encode.launches, encode.grouped_launches, place.launches,
+              decode.launches, decode.grouped_launches)
+    for name, values in (("ANSfold-2", x), ("ANSfold-8", _grouped_input())):
+        codec = models.get(name, device="cpu")
+        codec.decode(codec.encode(values), len(values))
+        pe = models.prepare_encoder(name, values, lanes=32, device="cpu")
+        pe()
+    assert (encode.launches, encode.grouped_launches, place.launches,
+            decode.launches, decode.grouped_launches) == counts \
+        == (0, 0, 0, 0, 0)
 
 
 def test_rejects_bad_input():
