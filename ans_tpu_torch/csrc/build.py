@@ -1,4 +1,4 @@
-"""Build the lane-engine CUDA kernels and bind them with ctypes.
+"""Build the CUDA kernels and bind them with ctypes.
 
 Each kernel is one `csrc/<name>.cu` file with a plain C interface
 (KERNELS lists them).  At first use, `nvcc` compiles it for Hopper
@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the kernel sources, csrc/<name>.cu, each exporting the C function <name>
 KERNELS = ("encode_scan", "encode_scan_grouped", "place", "decode_search",
-           "decode_grouped")
+           "decode_direct", "decode_grouped", "bytesplit_encode",
+           "svb_decode", "vbyte_decode")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # name -> nvcc/ptxas report of this process

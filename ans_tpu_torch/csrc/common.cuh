@@ -116,8 +116,14 @@ __device__ __forceinline__ int64_t read_merge(
     const uint8_t* __restrict__ stream, int64_t stream_len, int64_t cursor,
     int NR, int NE, const int (&rc)[LPT], const int (&ne)[LPT],
     uint32_t (&st)[LPT], uint32_t (&low)[LPT], bool& bad, ScanScratch& s) {
+  // The lane loops unroll fully up to 8 lanes a thread.  The 16-lane
+  // instance (S = 16384) stays rolled: fully unrolled, ptxas -O3 of CUDA
+  // 12.9 gave code that read the later rounds' bytes at wrong positions
+  // from the second step on, while -Xptxas -O0 and the rolled loop decode
+  // exactly (tests/test_torch_cuda.py holds S = 16384).
+  constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
   int cnt[MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
-#pragma unroll
+#pragma unroll LANE_UNROLL
   for (int l = 0; l < LPT; ++l) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -138,7 +144,7 @@ __device__ __forceinline__ int64_t read_merge(
       base += tot[r];
     }
   }
-#pragma unroll
+#pragma unroll LANE_UNROLL
   for (int l = 0; l < LPT; ++l) {
     uint32_t v = st[l];
     uint32_t lo = 0;

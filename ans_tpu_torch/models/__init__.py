@@ -2,19 +2,18 @@
 
 Every codec exposes `encode(values) -> bytes` and
 `decode(buf, n) -> np.uint32 array` and runs on the device it was built
-for.  Only the lane-engine ANSfold methods are ported so far; any other
-name of ans_tpu's registry raises KeyError naming the ROADMAP item that
-will port it.
+for.  Ported so far: the lane-engine ANS, ANSsint-h and ANSfold-f methods
+and the byte path (vbyte, streamvbyte, vbyteANS, streamvbyteANS); any
+other name of ans_tpu's registry raises KeyError naming the ROADMAP item
+that will port it.
 """
 
 from __future__ import annotations
 
-from ans_tpu.reference_model.model import serialize_prelude
-
-from ..ops import lane_codec
 from . import ans as _lane
-from . import config, framing
-from .engine import PreparedDecoder, PreparedEncoder
+from . import bytes as _bytes
+from . import config
+from .engine import PreparedDecoder, PreparedEncoder  # noqa: F401
 
 # name -> codec factory (lanes, device)
 _LANE = {
@@ -26,26 +25,39 @@ _LANE = {
        for h in (1, 5, 10, 20, 40, 80, 160, 320)},
 }
 
+# the byte path: splitters (no lanes) and split + AnsByte composites
+_BYTE = {
+    "vbyte": lambda lanes, device: _bytes.Vbyte(device=device),
+    "streamvbyte": lambda lanes, device: _bytes.StreamVbyte(device=device),
+    "vbyteANS": lambda lanes, device: _bytes.VbyteAns(lanes, device=device),
+    "streamvbyteANS": lambda lanes, device: _bytes.StreamVbyteAns(
+        lanes, device=device),
+}
+
 # name prefix -> where it is queued (ROADMAP.md, queue 1)
 _UNPORTED = (
     ("ANSrfold-", "queue 1 item 4 (AnsReorderFold)"),
     ("ANSsmsb-", "queue 1 item 4 (AnsSmsb)"),
     ("ANSmsb", "queue 1 item 4 (AnsMsb)"),
     ("pseudo_adaptive", "queue 1 item 9 (pseudo-adaptive)"),
-    ("", "queue 1 item 8 (byte splitters and host codecs)"),
+    ("", "queue 1 item 8 (the host codecs: fse, huffzero and their "
+         "composites, shuff, arith, optpfor, entropy)"),
 )
 
 
-def _lookup(name: str):
-    if name in _LANE:
-        return _LANE[name]
+def _lookup(name: str, registry=None):
+    registry = {**_LANE, **_BYTE} if registry is None else registry
+    if name in registry:
+        return registry[name]
+    if name in _BYTE:
+        raise KeyError(f"{name!r} is not a lane-format ANS method")
     todo = next(item for prefix, item in _UNPORTED if name.startswith(prefix))
     raise KeyError(f"method {name!r} is not ported to ans_tpu_torch yet "
                    f"(ROADMAP {todo}); ported: {available()}")
 
 
 def available():
-    return sorted(_LANE)
+    return sorted({**_LANE, **_BYTE})
 
 
 def get(name: str, *, device, lanes: int | None = None):
@@ -54,17 +66,16 @@ def get(name: str, *, device, lanes: int | None = None):
     return _lookup(name)(lanes, device)
 
 
-def prepare_decoder(name: str, blob: bytes, n: int, *, device):
+def prepare_decoder(name: str, blob: bytes, n: int, *, device,
+                    engine: str | None = None):
     """Stage a lane-format blob for repeated decodes on `device`: parse
     the wire prelude, rebuild the decode table as `decode()` does, and
-    return an engine.PreparedDecoder (call it to run the kernel)."""
-    codec = _lookup(name)(None, device)
-    blob = memoryview(blob).tobytes()
-    table, off = codec._dec_table(blob)
-    S, states, payload, _, sec_len = framing.parse(blob, off)
-    T = lane_codec.lane_steps(n, S)
-    return PreparedDecoder(payload, states, table, n, S=S, T=T,
-                           sec_len=sec_len, device=device)
+    return an engine.PreparedDecoder (call it to run the kernel).
+    `engine` forces "search", "grouped" or "direct" (ValueError when the
+    frame is not eligible for it); None leaves the choice to
+    engine.choose_decode_engine."""
+    codec = _lookup(name, _LANE)(None, device)
+    return codec.prepare_decoder(memoryview(blob).tobytes(), n, engine)
 
 
 def prepare_encoder(name: str, values, *, lanes: int = 4096, device):
@@ -74,11 +85,11 @@ def prepare_encoder(name: str, values, *, lanes: int = 4096, device):
     `pe.prelude + pe.to_bytes(*pe())` is the full wire blob, identical to
     `get(name, device=device).encode(values)` for a codec with the same
     lane count."""
-    codec = _lookup(name)(lanes, device)
+    codec = _lookup(name, _LANE)(lanes, device)
     mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
     n = int(mapped.shape[0])
     S = config.validate_lanes(lanes) or config.default_lane_count(n)
     table, staged = _lane._stage(mapped, k, low, n, ffreqs, raw, S)
     pe = PreparedEncoder(*staged, n, table)
-    pe.prelude = serialize_prelude(pfreqs, int(pfreqs.sum()))
+    pe.prelude = codec._prelude(pfreqs)
     return pe

@@ -5,9 +5,9 @@ ans_sint.hpp is AnsInt with its H_approx knob exposed).
 Pipeline per block (two-pass semi-static):
   1. mapping + exception extraction + histogram  - device fold map
      (ops.mappings) or host tail escape (ops.escape)
-  2. adjust_freqs frame search                    - host float64, shared
-     with ans_tpu (ans_tpu.reference_model.model)
-  3. prelude serialization                        - host, shared
+  2. adjust_freqs frame search                    - host float64
+     (reference_model.model, the port's copy of ans_tpu's)
+  3. prelude serialization                        - host, likewise
   4. S-lane stream coding                         - device: the encode scan
      (K1, or K6 under the frequency-grouped layout) and placement (K2)
 
@@ -23,13 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ans_tpu.constants import A_MAX_FRAME_LOG2, fold_max_sigma
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import (adjust_freqs, load_prelude,
-                                           serialize_prelude)
-
+from ..constants import A_MAX_FRAME_LOG2, fold_max_sigma
 from ..ops import escape, grouped, lane_codec, tables
 from ..ops.mappings import fold_map_hist
+from ..reference_model import mappings as map_np
+from ..reference_model.model import (adjust_freqs, load_prelude,
+                                     serialize_prelude)
 from . import config, engine, framing
 
 # default frame cap: None = the reference's exact adjust_freqs search,
@@ -88,7 +87,12 @@ class _LaneCodec:
     model half of encode: mapped symbols, exception counts and low bytes
     on the device, the prelude and frame frequencies, and whether the
     symbols are raw values) and `_table` (the decode table of a prelude's
-    frequencies)."""
+    frequencies); one with another prelude than the ANS family's
+    overrides `_prelude` and `_dec_table`."""
+
+    def _prelude(self, pfreqs) -> bytes:
+        """The wire prelude of the model's frequencies."""
+        return serialize_prelude(pfreqs, int(pfreqs.sum()))
 
     def encode(self, values) -> bytes:
         """Model half -> prelude -> lane stream.  The prelude serialises
@@ -98,20 +102,27 @@ class _LaneCodec:
         n = int(mapped.shape[0])
         table, staged = _stage(mapped, k, low, n, ffreqs, raw,
                                self.lanes or config.default_lane_count(n))
-        return (serialize_prelude(pfreqs, int(pfreqs.sum()))
-                + engine.encode(*staged, n, table))
+        return self._prelude(pfreqs) + engine.encode(*staged, n, table)
 
     def _dec_table(self, buf: bytes):
         """(decode table, stream offset) parsed from the wire prelude."""
         nfreqs, plen = load_prelude(buf)
         return self._table(nfreqs), plen
 
-    def decode(self, buf: bytes, n: int) -> np.ndarray:
+    def prepare_decoder(self, buf: bytes, n: int,
+                        engine_name: str | None = None):
+        """Stage a blob for repeated decodes on the codec's device: an
+        engine.PreparedDecoder on `engine_name` ("search", "grouped" or
+        "direct"; None: the engine rule's choice)."""
         table, off = self._dec_table(buf)
         S, states, payload, _, sec_len = framing.parse(buf, off)
-        return engine.decode(payload, states, table, n, S=S,
-                             T=lane_codec.lane_steps(n, S), sec_len=sec_len,
-                             device=self.device)
+        return engine.PreparedDecoder(
+            payload, states, table, n, S=S, T=lane_codec.lane_steps(n, S),
+            sec_len=sec_len, device=self.device, engine=engine_name)
+
+    def decode(self, buf: bytes, n: int) -> np.ndarray:
+        prep = self.prepare_decoder(buf, n)
+        return prep.to_host(prep())
 
 
 class AnsInt(_LaneCodec):

@@ -5,12 +5,14 @@ tables and inputs on the device once; each call then runs only the
 kernels.  This is both the serving pattern (compressed blocks live in
 device memory next to their consumer) and the honest device benchmark.
 
-The engine follows the slot layout, a format property the prelude
+The encode engine follows the slot layout, a format property the prelude
 decides: frames with more than 2^13 live symbols use the frequency-
-grouped layout and run the grouped kernels (encode K6, decode K5), the
-others the value-indexed scan (K1) and the pivot search (K3); placement
-(K2) serves both.  ans_tpu's direct engine (K4) and its TPU cost model
-(`choose_decode_engine`), which may prefer it, are not ported.
+grouped layout and run the grouped scan (K6), the others the
+value-indexed scan (K1); placement (K2) serves both.  Decoding has three
+engines.  "search" (K3) and "grouped" (K5) each read their own layout;
+"direct" (K4) reads a per-slot table, under either layout, when that
+table fits the shared memory of one block.  The engine is not visible on
+the wire; `choose_decode_engine` picks it from the table.
 """
 
 from __future__ import annotations
@@ -19,27 +21,66 @@ import numpy as np
 import torch
 
 from ..ops import lane_codec, tables
-from ..ops.decode import decode_grouped, decode_search
+from ..ops.decode import decode_direct, decode_grouped, decode_search
 from ..ops.encode import encode_scan, encode_scan_grouped
 from ..ops.place import place
 from . import framing
 
+ENGINES = ("search", "grouped", "direct")
+
+
+def eligible_engines(table) -> tuple:
+    """The decode engines that can read `table` (a tables.SearchTable or
+    tables.GroupedTable): the layout's own, and "direct" when the per-slot
+    table fits shared memory."""
+    own = "grouped" if isinstance(table, tables.GroupedTable) else "search"
+    return (own, "direct") if tables.direct_fits(table) else (own,)
+
+
+def choose_decode_engine(table, S: int) -> str:
+    """The decode engine for `table` at S lanes: "direct" wherever it is
+    eligible, else the layout's own engine.  A pure function of the
+    table: eligibility is capacity (tables.direct_fits), and no crossover
+    was found inside it.  On an NVIDIA H100 80GB HBM3 at 700 W
+    (ans_tpu_torch/bench_crossover.py; PERF.md has the table) K4 took
+    0.45-0.88 of K3's time on every value-order frame that fits (sigma 16
+    to 8192, M 2^8 to 2^16; 0.71 on ANSfold-2's main path, 0.73 on
+    AnsByte) and 0.83-0.92 of K5's on the grouped frames that fit, at
+    S = 4096 and at S = 32: two dependent shared-memory loads against the
+    search's chain of probes, or the grouped engine's search plus
+    divide."""
+    del S  # the order of the engines held at both lane counts measured
+    engines = eligible_engines(table)
+    return "direct" if "direct" in engines else engines[0]
+
 
 class PreparedDecoder:
     """All decode inputs staged on `device`; call to run the decoder.
-    `engine` is "grouped" (K5) for a GroupedTable, "search" (K3) for a
-    SearchTable."""
+    `engine` is "search" (K3), "grouped" (K5) or "direct" (K4); None
+    leaves the choice to choose_decode_engine.  An engine the table is
+    not eligible for raises ValueError."""
 
     def __init__(self, payload: np.ndarray, states: np.ndarray, table,
-                 n: int, *, S: int, T: int, sec_len, device):
+                 n: int, *, S: int, T: int, sec_len, device,
+                 engine: str | None = None):
         if int(np.sum(sec_len)) != len(payload):
             raise ValueError("corrupt lane header: section lengths do not "
                              "sum to the stream length")
         self.n, self.S, self.T = n, S, T
         self.device = torch.device(device)
-        grouped = isinstance(table, tables.GroupedTable)
-        self.engine = "grouped" if grouped else "search"
-        self._kernel = decode_grouped if grouped else decode_search
+        if engine is None:
+            engine = choose_decode_engine(table, S)
+        elif engine not in eligible_engines(table):
+            raise ValueError(
+                f"decode engine {engine!r} is not eligible for this frame "
+                f"(eligible: {eligible_engines(table)}; \"direct\" needs "
+                f"{tables.direct_table_bytes(table)} bytes of tables in "
+                f"{tables.DIRECT_TABLE_BYTES})")
+        self.engine = engine
+        if engine == "direct":
+            table = tables.materialize_slots(table)
+        self._kernel = {"search": decode_search, "grouped": decode_grouped,
+                        "direct": decode_direct}[engine]
         self.table = tables.to_device(table, self.device)
         self.stream = torch.from_numpy(
             np.array(payload, dtype=np.uint8)).to(self.device)
@@ -57,10 +98,11 @@ class PreparedDecoder:
 
 
 def decode(payload: np.ndarray, states: np.ndarray, table, n: int, *,
-           S: int, T: int, sec_len, device) -> np.ndarray:
+           S: int, T: int, sec_len, device,
+           engine: str | None = None) -> np.ndarray:
     """One-shot: stage, run, and return the host u32 array."""
     prep = PreparedDecoder(payload, states, table, n, S=S, T=T,
-                           sec_len=sec_len, device=device)
+                           sec_len=sec_len, device=device, engine=engine)
     return prep.to_host(prep())
 
 

@@ -1,9 +1,10 @@
-"""K3, the pivot-search lockstep decode (csrc/decode_search.cu), and K5,
-the grouped lockstep decode (csrc/decode_grouped.cu), and their wrappers.
+"""K3, the pivot-search lockstep decode (csrc/decode_search.cu), K4, the
+direct lockstep decode over per-slot tables (csrc/decode_direct.cu), and
+K5, the grouped lockstep decode (csrc/decode_grouped.cu), and their
+wrappers.
 
-Replace ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search` and
-`stage_grouped` + `_call_grouped` (the direct decoder K4 is not ported
-yet)."""
+Replace ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search`,
+`stage` + `_call` and `stage_grouped` + `_call_grouped`."""
 
 from __future__ import annotations
 
@@ -12,11 +13,14 @@ import ctypes as ct
 import torch
 
 from ..csrc import build
-from .lane_codec import decode_grouped_plain, decode_search_plain
-from .tables import GroupedDecDevice, SearchDevice
+from .lane_codec import (decode_direct_plain, decode_grouped_plain,
+                         decode_search_plain)
+from .tables import (DIRECT_TABLE_BYTES, DirectDevice, GroupedDecDevice,
+                     SearchDevice)
 
-# launches of the CUDA kernels K3 and K5 (never counts a plain version)
+# launches of the CUDA kernels K3, K4 and K5 (never counts a plain version)
 launches = 0
+direct_launches = 0
 grouped_launches = 0
 
 # the kernels keep LPT = S/1024 lane states per thread in registers and
@@ -54,6 +58,44 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
         table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
         build.ptr(out), build.ptr(err), build.current_stream(dev)))
     launches += 1
+    _raise_on(err)
+    return out
+
+
+_DIRECT_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+                    ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_int64, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
+                    ct.c_void_p]
+
+
+def decode_direct(stream: torch.Tensor, states: torch.Tensor,
+                  table: DirectDevice, n: int, T: int) -> torch.Tensor:
+    """Decode T lockstep steps through the per-slot table of the frame
+    (either slot layout); arguments, result and errors as decode_search.
+    Raises ValueError when the tables do not fit the shared memory of one
+    block.  CPU tensors run the plain version
+    (lane_codec.decode_direct_plain); CUDA tensors launch the kernel."""
+    global direct_launches
+    _check_inputs("decode_direct", stream, states)
+    smem = 2 * table.frame_size + 16 * table.sigma
+    if smem > DIRECT_TABLE_BYTES:
+        raise ValueError(
+            f"decode_direct: the frame's tables take {smem} bytes of "
+            f"shared memory; a block has {DIRECT_TABLE_BYTES}")
+    tensors = (stream, states, table.slot_sym, table.rows)
+    if all(t.device.type == "cpu" for t in tensors):
+        return decode_direct_plain(stream, states, table, n, T)
+    dev = build.require_cuda("decode_direct", *tensors)
+    S = _lanes("decode_direct", states)
+    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.function("decode_direct", _DIRECT_ARGTYPES)
+    build.check("decode_direct", fn(
+        build.ptr(stream), stream.numel(), build.ptr(states),
+        build.ptr(table.rows), build.ptr(table.slot_sym), table.sigma,
+        table.log2m, table.NR, table.NE, n, T, S, build.ptr(out),
+        build.ptr(err), build.current_stream(dev)))
+    direct_launches += 1
     _raise_on(err)
     return out
 

@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from .tables import (A_L, EncDevice, GroupedDecDevice, GroupedEncDevice,
-                     SearchDevice)
+from .tables import (A_L, DirectDevice, EncDevice, GroupedDecDevice,
+                     GroupedEncDevice, SearchDevice)
 
 NROUNDS = 6  # 3 renorm + 3 exception byte rounds per step
 
@@ -220,9 +220,28 @@ def decode_grouped_plain(stream: torch.Tensor, states: torch.Tensor,
     return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
 
 
+def decode_direct_plain(stream: torch.Tensor, states: torch.Tensor,
+                        table: DirectDevice, n: int, T: int) -> torch.Tensor:
+    """Plain version of K4 (csrc/decode_direct.cu): lockstep decode with
+    the symbol read from the per-slot table (slot -> symbol index ->
+    row [freq, base, high, nb]), under either slot layout.  Arguments,
+    result and errors as decode_search_plain."""
+    M = table.frame_size
+    slot_sym = table.slot_sym.to(torch.int64) & 0xFFFF
+    rows = table.rows.to(torch.int64) & 0xFFFFFFFF
+
+    def symbol(state):
+        slot = state & (M - 1)
+        r = rows[slot_sym[slot]]
+        return (r[:, 0] * (state >> table.log2m) + slot - r[:, 1],
+                r[:, 3] if table.NE else None, r[:, 2])
+
+    return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
+
+
 def _decode_plain(stream, states, n: int, T: int, NR: int, NE: int,
                   symbol) -> torch.Tensor:
-    """The lockstep loop of K3 and K5.  symbol(state) gives each lane's
+    """The lockstep loop of K3, K4 and K5.  symbol(state) gives each lane's
     state before renormalisation, its exception-byte count (None when
     NE = 0) and the value's high part; this loop ranks every round's
     byte reads over the lanes, merges the bytes high-first and advances

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ans_tpu.constants import fold_offset_step, fold_threshold
+from ..constants import fold_offset_step, fold_threshold
 
 
 def fold_map_hist(x: torch.Tensor, *, fidelity: int, length: int):

@@ -5,7 +5,9 @@ to them by tests/test_torch_host.py) plus `to_device`, which lays a table
 out as the device tensors the CUDA kernels and their plain versions read.
 Frames with more than 2^13 live symbols use the frequency-grouped slot
 layout (ops/grouped.py): their decode table is a `GroupedTable`, their
-encoder's tables come from `grouped_enc_to_device`.
+encoder's tables come from `grouped_enc_to_device`.  `materialize_slots`
+turns either decode table into the per-slot `SlotTable` of the direct
+engine, for frames small enough to keep it in shared memory.
 """
 
 from __future__ import annotations
@@ -15,8 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ans_tpu.constants import A_KM_LOG2, A_MAX_FRAME_LOG2
-
+from ..constants import A_KM_LOG2, A_MAX_FRAME_LOG2
 from .grouped import (GroupLayout, _gm_magic, build_group_layout,
                       use_grouped_layout)
 
@@ -154,6 +155,81 @@ def build_dec_table(nfreqs: np.ndarray,
     return build(nfreqs, high_of_sym, nb_of_sym)
 
 
+# Shared memory the direct engine's tables may take: the 227 KB a block
+# can opt into on Hopper, less room for the kernel's scan scratch.
+DIRECT_TABLE_BYTES = 227 * 1024 - 4096
+
+
+@dataclass(frozen=True)
+class SlotTable:
+    """Per-slot decode table of a frame, for the direct engine: slot ->
+    the index of its owning symbol in slot order (the dense id under the
+    value-cumulative layout, the rank under the frequency-grouped one),
+    and per index the symbol's frequency, first slot and output (value
+    or high part, and exception-byte count)."""
+
+    slot_sym: np.ndarray  # u16 (M,)
+    freq: np.ndarray      # u32 (sigma,)
+    base: np.ndarray      # u32 (sigma,) first slot of the symbol
+    high: np.ndarray      # u32 (sigma,) value, or high part
+    nb: np.ndarray        # u32 (sigma,) exception bytes (0 for values)
+    sigma: int
+    frame_size: int
+    log2m: int
+
+
+def _frame_of(table):
+    """(sigma, M) of a SearchTable or a GroupedTable."""
+    t = table.layout if isinstance(table, GroupedTable) else table
+    return int(t.sigma), int(t.frame_size)
+
+
+def direct_table_bytes(table) -> int:
+    """Shared memory the direct engine needs for a decode table: a u16
+    symbol index per slot and one 16-byte row per live symbol."""
+    sigma, M = _frame_of(table)
+    return 2 * M + 16 * sigma
+
+
+def direct_fits(table) -> bool:
+    """Whether the direct engine can decode this frame: its tables fit
+    the shared memory of one block and its live symbols a u16 index."""
+    sigma, _ = _frame_of(table)
+    return (sigma <= 1 << 16
+            and direct_table_bytes(table) <= DIRECT_TABLE_BYTES)
+
+
+def materialize_slots(table) -> SlotTable:
+    """The per-slot table of a SearchTable (slots in value order) or a
+    GroupedTable (slots in rank order: symbol layout.perm[r] owns the
+    r-th contiguous run)."""
+    sigma, M = _frame_of(table)
+    if sigma > 1 << 16:
+        raise ValueError(f"{sigma} live symbols do not fit the direct "
+                         f"engine's u16 symbol index")
+    if isinstance(table, GroupedTable):
+        lay = table.layout
+        counts = np.diff(np.append(lay.g_rank0.astype(np.int64), sigma))
+        freq = np.repeat(lay.g_f.astype(np.int64), counts)
+        high = table.high if table.high is not None else table.val
+        nb, log2m = table.nb, lay.log2m
+    else:
+        freq = np.diff(_bases(table.pivots, table.depth, M)[:sigma + 1])
+        high = table.high if table.high is not None else table.val
+        nb, log2m = table.nb, table.log2m
+    if high is None:
+        high = np.arange(sigma, dtype=np.uint32)
+    if nb is None:
+        nb = np.zeros(sigma, np.uint32)
+    base = np.concatenate(([0], np.cumsum(freq)[:-1]))
+    return SlotTable(
+        slot_sym=np.repeat(np.arange(sigma, dtype=np.uint16), freq),
+        freq=freq.astype(np.uint32), base=base.astype(np.uint32),
+        high=np.asarray(high, dtype=np.uint32),
+        nb=np.asarray(nb, dtype=np.uint32), sigma=sigma, frame_size=M,
+        log2m=int(log2m))
+
+
 # --------------------------------------------------------------------------
 # device layout
 # --------------------------------------------------------------------------
@@ -189,6 +265,22 @@ class SearchDevice:
     NE: int  # exception rounds per step (max nb over the live symbols)
 
 
+@dataclass(frozen=True)
+class DirectDevice:
+    """The direct decode's tables (K4).  slot_sym: (M,) i16 holding the
+    u16 symbol index of each slot; rows: (sigma, 4) i32 rows [freq,
+    base, high, nb], one 16-byte load per symbol.  The decoded value is
+    high + (the nb exception bytes read)."""
+
+    slot_sym: torch.Tensor
+    rows: torch.Tensor
+    sigma: int
+    frame_size: int
+    log2m: int
+    NR: int
+    NE: int
+
+
 def _i32(a: np.ndarray, device) -> torch.Tensor:
     """u32/i32/i64 NumPy values -> i32 tensor with the same low 32 bits."""
     a = np.ascontiguousarray(np.asarray(a).astype(np.uint32)).view(np.int32)
@@ -210,11 +302,13 @@ def _bases(pivots, depth: int, pad: int) -> np.ndarray:
 
 def to_device(table, device):
     """Device tensors for an encode table (EncTable), a pivot-search
-    table (SearchTable) or a grouped decode table (GroupedTable).
-    Accepts this module's dataclasses or those of ans_tpu.ops.tables,
-    which carry the same fields (and, for the encode table, a few the
-    kernels do not read)."""
+    table (SearchTable), a grouped decode table (GroupedTable) or a
+    per-slot table (SlotTable).  Accepts this module's dataclasses or
+    those of ans_tpu.ops.tables, which carry the same fields (and, for
+    the encode table, a few the kernels do not read)."""
     device = torch.device(device)
+    if isinstance(table, SlotTable):
+        return _slots_to_device(table, device)
     if hasattr(table, "layout"):
         return _grouped_to_device(table, device)
     if hasattr(table, "pivots"):
@@ -247,6 +341,16 @@ def _search_to_device(st, device) -> SearchDevice:
                         sigma=int(st.sigma), frame_size=M,
                         log2m=int(st.log2m),
                         NR=max_renorm_rounds(int(st.log2m)), NE=NE)
+
+
+def _slots_to_device(st: SlotTable, device) -> DirectDevice:
+    rows = np.stack([st.freq, st.base, st.high, st.nb], axis=1)
+    return DirectDevice(
+        slot_sym=torch.from_numpy(st.slot_sym.view(np.int16).copy()).to(
+            device),
+        rows=_i32(rows, device), sigma=st.sigma, frame_size=st.frame_size,
+        log2m=st.log2m, NR=max_renorm_rounds(st.log2m),
+        NE=int(st.nb.max()) if st.sigma else 0)
 
 
 @dataclass(frozen=True)

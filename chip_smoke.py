@@ -6,41 +6,53 @@
 Drives the port's paths through the entry points a user calls, at full
 width, and checks them against the reference's bytes: the main path,
 ANSfold-2 on zipf(1.25) data at n = 2^25 with S = 4096 lanes (the
-headline of bench.py), and the frequency-grouped path, ANSfold-7 on
-zipf-2^20 data (n = 2^25, S = 4096), with ANS on the same input (tail
-escape onto the pivot search) and on a 2^16-symbol input the escape
-declines (n = 2^22); the inputs are ans_tpu_torch/inputs.py's:
+headline of bench.py); the frequency-grouped path, ANSfold-7 on zipf-2^20
+data (n = 2^25, S = 4096), with ANS on the same input (tail escape onto
+the pivot search) and on a 2^16-symbol input the escape declines
+(n = 2^22); and the byte path, vbyteANS and streamvbyteANS on the zipf-2^20
+data.  The inputs are ans_tpu_torch/inputs.py's:
 
   0. device: the card's name and power limit;
-  1. build: nvcc compiles the five kernels from ans_tpu_torch/csrc, all at
+  1. build: nvcc compiles the nine kernels from ans_tpu_torch/csrc, all at
      once;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
-     version on the same inputs (n = 2^20, S in {32, 4096}: K1-K3 on
-     ANSfold-2, K5/K6 on ANSfold-7 (in-kernel symbol -> rank map, high/nb
-     table), on ANS without the escape (ranks, value table) and on a frame
-     whose ranks are its values; then K1-K3 on the main path's arrays);
-     all integer, so the tolerance is zero.  Kernel and plain times at the
-     full-width shapes (CUDA events, min of 5 for the kernels, 2 for the
-     plain versions);
+     version on the same inputs (n = 2^20, S in {32, 4096}: K1-K4 on
+     ANSfold-2 and on AnsByte's frame, K5/K6 on ANSfold-7 (in-kernel symbol
+     -> rank map, high/nb table), on ANS without the escape (ranks, value
+     table), on a frame whose ranks are its values, and with K4 on a
+     grouped frame small enough for its per-slot table; K7-K9 on values of
+     every byte length; then K1-K4 on the main path's arrays); all integer,
+     so the tolerance is zero.  Kernel and plain times at the full-width
+     shapes (CUDA events, min of 5 for the kernels, one run after a warm-up
+     for the plain versions);
   3. golden fixtures (tests/fixtures/lane, written by ans_tpu): encode
      equals the blob byte for byte, decode equals the input;
   4. the main path at full width: the input's sha256 and the blob's length
      and sha256 equal tests/fixtures/lane/fullwidth.json; decode is exact;
-     the prepared encoder/decoder write and read the same bytes; K1-K3 were
-     launched by this phase;
+     the prepared encoder/decoder write and read the same bytes; the
+     decoder runs the engine the rule picks ("direct", K4) and, forced,
+     "search" (K3); K1-K4 were launched by this phase;
   5. the grouped path at full width (records in fullwidth_zipf20.json):
      ANSfold-7 as phase 4, with the prepared decoder on the "grouped"
      engine and K6, K2, K5 launched by this phase;
   6. ANS on the same input: as phase 4, the escape taking it onto the
      "search" engine (K1-K3 launched by this phase);
   7. ANS on the escape-declining input: as phase 5 on the "grouped"
-     engine (K6 fed ranks, K5 with a value table).
-  Phases 5-7 then hold their kernels against the plain versions at their
-  own shapes and time both (min of 5 and of 2).
+     engine (K6 fed ranks, K5 with a value table);
+  8. the byte path at full width (records in fullwidth_bytes.json): vbyte
+     and streamvbyte split streams, vbyteANS and streamvbyteANS blobs equal
+     to the records, decode exact; K7, K1, K2 launched on encode and K4 and
+     K9 / K8 on decode; the AnsByte prepared decode timed under "direct"
+     and under "search".
+  Phases 5-8 then hold their kernels against the plain versions at their
+  own shapes and time both.
 
-Prints the kernels' JSON line, then as its last line
-{"ok": true, "device": {...}}.  Any failure exits non-zero and prints
-no result; so does a machine without CUDA.  Imports no JAX.
+Prints the kernels' JSON line (each kernel's launches on its path, its
+time, its plain version's, and its bound: the larger of the bytes it must
+move at 3.35 TB/s and its integer operations at 67 T/s, the published
+rates of the H100 SXM), then as its last line {"ok": true, "device":
+{...}}.  Any failure exits non-zero and prints no result; so does a
+machine without CUDA.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -60,8 +72,11 @@ ROOT = Path(__file__).resolve().parent
 LANE_FIXTURES = ROOT / "tests" / "fixtures" / "lane"
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
-RUNS, PLAIN_RUNS = 5, 2
+RUNS, PLAIN_RUNS = 5, 1
 DEVICE = "cuda"
+# published rates of the H100 SXM: device memory, and 32-bit arithmetic
+# outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
 
 # kernel name -> (source, TPU kernel it replaces, its wrapper's counter)
 KERNELS = {
@@ -74,10 +89,31 @@ KERNELS = {
               "ans_tpu/ops/pallas_place.py:141", "place.launches"),
     "decode_search": ("ans_tpu_torch/csrc/decode_search.cu",
                       "ans_tpu/ops/pallas_decode.py:377", "decode.launches"),
+    "decode_direct": ("ans_tpu_torch/csrc/decode_direct.cu",
+                      "ans_tpu/ops/pallas_decode.py:207",
+                      "decode.direct_launches"),
     "decode_grouped": ("ans_tpu_torch/csrc/decode_grouped.cu",
                        "ans_tpu/ops/pallas_decode.py:852",
                        "decode.grouped_launches"),
+    "bytesplit_encode": ("ans_tpu_torch/csrc/bytesplit_encode.cu",
+                         "ans_tpu/ops/pallas_bytesplit.py:141",
+                         "bytesplit.encode_launches"),
+    "svb_decode": ("ans_tpu_torch/csrc/svb_decode.cu",
+                   "ans_tpu/ops/pallas_bytesplit.py:276",
+                   "bytesplit.svb_decode_launches"),
+    "vbyte_decode": ("ans_tpu_torch/csrc/vbyte_decode.cu",
+                     "ans_tpu/ops/pallas_bytesplit.py:480",
+                     "bytesplit.vbyte_decode_launches"),
 }
+
+# integer operations per item, counted from each kernel's source: per
+# (lane, step) for the lane kernels (`depth` is the search's), per element
+# for K7 and K8, per stream byte for K9
+OPS = {"encode_scan": lambda d: 30, "encode_scan_grouped": lambda d: 4 * d + 35,
+       "place": lambda d: 30, "decode_search": lambda d: 4 * d + 30,
+       "decode_direct": lambda d: 30, "decode_grouped": lambda d: 4 * d + 45,
+       "bytesplit_encode": lambda d: 20, "svb_decode": lambda d: 15,
+       "vbyte_decode": lambda d: 10}
 
 
 class SmokeFailure(Exception):
@@ -93,10 +129,11 @@ def sha256(b) -> str:
     return hashlib.sha256(bytes(b)).hexdigest()
 
 
-def cuda_ms(fn, runs: int = RUNS) -> float:
+def cuda_ms(fn, runs: int = RUNS, warm: bool = True) -> float:
     """Min over `runs` of one call's time between CUDA events (after a
-    warm-up call)."""
-    fn()
+    warm-up call, unless the caller has made one)."""
+    if warm:
+        fn()
     best = float("inf")
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
@@ -116,48 +153,88 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(name: str, moved: int, items: int, depth: int = 0) -> dict:
+    """The least time the card could take for a kernel's work: the bytes
+    it must move (every input read once, every output written once) at the
+    card's memory rate, or its integer operations at the card's 32-bit
+    rate, whichever is larger."""
+    by_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = OPS[name](depth) * items / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 class Stage:
     """One input staged for the kernels on the card through a codec's own
     mapping and tables: the scan's table and (T, S) inputs as encode()
     builds them, the decode table as decode() builds it from the
-    prelude's frequencies."""
+    prelude's frequencies (and its per-slot form where that fits)."""
 
-    def __init__(self, codec, values: np.ndarray, lanes: int):
+    def __init__(self, codec, values, lanes: int):
         from ans_tpu_torch.models.ans import _stage
-        from ans_tpu_torch.ops import lane_codec, tables
+        from ans_tpu_torch.ops import lane_codec
         mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
-        self.n = len(values)
+        self.n = int(mapped.shape[0])
         self.S = lanes
         self.T = lane_codec.lane_steps(self.n, lanes)
         self.enc, (self.mapped, self.nb, self.excw) = _stage(
             mapped, k, low, self.n, ffreqs, raw, lanes)
-        self.dec = tables.to_device(codec._table(pfreqs), DEVICE)
+        self.set_dec(codec._table(pfreqs))
+
+    def set_dec(self, table) -> None:
+        from ans_tpu_torch.ops import tables
+        self.dec = tables.to_device(table, DEVICE)
+        self.direct = (tables.to_device(tables.materialize_slots(table),
+                                        DEVICE)
+                       if tables.direct_fits(table) else None)
 
 
-class IdentityStage(Stage):
-    """A grouped frame whose ranks are its values (frequencies falling
-    with the value over 2^14 symbols, M = 2^17): K6 fed ranks, K5 with no
-    table."""
+class FrameStage(Stage):
+    """A hand-built grouped frame over 2^14 or fewer symbols, its values
+    drawn from its own frequencies: K6 fed ranks, K5 with no table when
+    the ranks are the values (`identity`)."""
 
-    def __init__(self, n: int, lanes: int):
+    def __init__(self, nf: np.ndarray, n: int, lanes: int, identity: bool):
         from ans_tpu_torch.models.ans import _stage_ts
         from ans_tpu_torch.ops import grouped, lane_codec, tables
-        v = np.arange(1 << 14)
-        nf = (1 + (v < 1 << 13) + 2 * (v < 1 << 11) + 5 * (v < 64)).astype(
-            np.uint64)
-        nf[0] += (1 << 17) - int(nf.sum())
         x = np.random.default_rng(5).choice(len(nf), size=n,
                                             p=nf / nf.sum())
-        xt = torch.from_numpy(x.astype(np.int32)).to(DEVICE)
+        layout = grouped.build_group_layout(nf)
+        xt = torch.from_numpy(layout.rank_of[x].view(np.int32)).to(DEVICE)
         zero = torch.zeros_like(xt)
         self.n, self.S = n, lanes
         self.T = lane_codec.lane_steps(n, lanes)
-        self.enc = tables.grouped_enc_to_device(
-            grouped.build_group_layout(nf), DEVICE, rank_of=False)
+        self.enc = tables.grouped_enc_to_device(layout, DEVICE,
+                                                rank_of=False)
         self.mapped, self.nb, self.excw = _stage_ts(xt, zero, zero, n, lanes,
                                                     self.T)
-        self.dec = tables.to_device(tables.build_grouped_table(nf), DEVICE)
-        require(self.dec.table.numel() == 0, "the identity frame has a table")
+        self.set_dec(tables.build_grouped_table(nf))
+        require((self.dec.table.numel() == 0) == identity,
+                "the frame's ranks are its values" if not identity else
+                "the identity frame has a table")
+
+
+def identity_frame() -> np.ndarray:
+    """Frequencies falling with the value over 2^14 symbols, M = 2^17: the
+    ranks are the values (K5 with no table); too large for K4."""
+    v = np.arange(1 << 14)
+    nf = (1 + (v < 1 << 13) + 2 * (v < 1 << 11) + 5 * (v < 64)).astype(
+        np.uint64)
+    nf[0] += (1 << 17) - int(nf.sum())
+    return nf
+
+
+def small_grouped_frame() -> np.ndarray:
+    """9000 symbols of frequency 1 or 2 in no order, M = 2^14: a grouped
+    frame whose per-slot table fits K4's shared memory."""
+    f = np.ones(9000, np.int64)
+    f[:7384] = 2
+    return np.random.default_rng(6).permutation(f).astype(np.uint64)
 
 
 def ptxas_report(log: str):
@@ -179,12 +256,25 @@ def ptxas_report(log: str):
             yield fn, line.replace("ptxas info    :", "").strip()
 
 
-def check_kernels(st: Stage, timed: bool, plain_runs: int = RUNS) -> dict:
-    """The scan (K1 or K6), K2 and the decode (K3 or K5) of st against
-    their plain versions; returns per-kernel max_abs_err (and ms /
-    plain_ms when timed: CUDA events, min of RUNS for a kernel and of
-    plain_runs for a plain version)."""
+def compare(name: str, where: str, got, want) -> int:
+    """max_abs_err over one or more tensor pairs; fails unless 0."""
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(max_abs_err(a, b) for a, b in pairs)
+    require(err == 0, f"{name} differs from its plain version {where} "
+                      f"(max abs err {err})")
+    return err
+
+
+def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
+    """The scan (K1 or K6), K2, the layout's decode (K3 or K5) and, where
+    the per-slot table fits, K4 of st against their plain versions;
+    returns per-kernel max_abs_err (and ms / plain_ms and the bound when
+    timed: CUDA events, min of RUNS for a kernel and of PLAIN_RUNS for a
+    plain version).  plain_search=False holds K3 against K4's output
+    instead of its own plain version (the byte path's long streams)."""
     from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
+    where = f"at S={st.S}"
     grouped = isinstance(st.enc, tables.GroupedEncDevice)
     if grouped:
         scan = ("encode_scan_grouped", encode.encode_scan_grouped,
@@ -199,41 +289,96 @@ def check_kernels(st: Stage, timed: bool, plain_runs: int = RUNS) -> dict:
     res = {}
     sargs = (st.mapped, st.n, st.enc)
     packed, states = scan[1](*sargs)
-    packed_p, states_p = scan[2](*sargs)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(packed, packed_p),
-              max_abs_err(states, states_p))
-    require(err == 0, f"{scan[0]} differs from its plain version at "
-                      f"S={st.S} (max abs err {err})")
-    res[scan[0]] = {"max_abs_err": err}
+    res[scan[0]] = {"max_abs_err": compare(scan[0], where, (packed, states),
+                                           scan[2](*sargs))}
 
     round_base, total = lane_codec.encode_totals(packed, st.nb, st.n)
     total = int(total)
     args = (packed, st.nb, st.excw, st.n, round_base, total)
     stream = place.place(*args)
-    stream_p = lane_codec.place_plain(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err(stream, stream_p)
-    require(err == 0, f"place differs from its plain version at S={st.S}")
-    res["place"] = {"max_abs_err": err}
+    res["place"] = {"max_abs_err": compare(
+        "place", where, stream, lane_codec.place_plain(*args))}
 
+    pairs = {scan[0]: (lambda: scan[1](*sargs), lambda: scan[2](*sargs)),
+             "place": (lambda: place.place(*args),
+                       lambda: lane_codec.place_plain(*args))}
+    out = None
+    if st.direct is not None:
+        xargs = (stream, states, st.direct, st.n, st.T)
+        out = decode.decode_direct(*xargs)
+        res["decode_direct"] = {"max_abs_err": compare(
+            "decode_direct", where, out,
+            lane_codec.decode_direct_plain(*xargs))}
+        pairs["decode_direct"] = (
+            lambda: decode.decode_direct(*xargs),
+            lambda: lane_codec.decode_direct_plain(*xargs))
     dargs = (stream, states, st.dec, st.n, st.T)
-    out = dec[1](*dargs)
-    out_p = dec[2](*dargs)
-    torch.cuda.synchronize()
-    err = max_abs_err(out, out_p)
-    require(err == 0, f"{dec[0]} differs from its plain version at "
-                      f"S={st.S} (max abs err {err})")
-    res[dec[0]] = {"max_abs_err": err}
+    use_plain = plain_search or out is None
+    res[dec[0]] = {"max_abs_err": compare(
+        dec[0], where, dec[1](*dargs),
+        dec[2](*dargs) if use_plain else out)}
+    pairs[dec[0]] = (lambda: dec[1](*dargs),
+                     (lambda: dec[2](*dargs)) if use_plain else None)
 
     if timed:
-        pairs = {scan[0]: (lambda: scan[1](*sargs), lambda: scan[2](*sargs)),
-                 "place": (lambda: place.place(*args),
-                           lambda: lane_codec.place_plain(*args)),
-                 dec[0]: (lambda: dec[1](*dargs), lambda: dec[2](*dargs))}
+        items = st.T * st.S
+        moved = {
+            scan[0]: nbytes(st.mapped, packed, states, *[
+                t for t in vars(st.enc).values() if torch.is_tensor(t)]),
+            "place": nbytes(packed, st.nb, st.excw, round_base, stream)}
+        for name, tab in ((dec[0], st.dec), ("decode_direct", st.direct)):
+            if tab is not None:
+                moved[name] = 4 * items + nbytes(stream, states, *[
+                    t for t in vars(tab).values() if torch.is_tensor(t)])
         for name, (kern, plain) in pairs.items():
             res[name]["ms"] = cuda_ms(kern)
-            res[name]["plain_ms"] = cuda_ms(plain, plain_runs)
+            res[name]["plain_ms"] = (cuda_ms(plain, PLAIN_RUNS, warm=False)
+                                     if plain else None)
+            depth = (st.enc if name == scan[0] else st.dec)
+            res[name].update(bound(name, moved[name], items,
+                                   getattr(depth, "depth", 0)))
+    return res
+
+
+def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
+    """K7 (both formats), K8 and K9 on the (n,) i32 values x against their
+    plain versions, and the round trip; timings and bounds as
+    check_kernels gives them.  K7's time is the vbyte format's (5 phases
+    of compares against streamvbyte's 4); streamvbyte's is printed."""
+    from ans_tpu_torch.ops import bytesplit as bs
+    n = x.numel()
+    where = f"at n={n}"
+    vb = bs.vbyte_encode(x)
+    ctrl, data = bs.svb_encode(x)
+    err = max(compare("bytesplit_encode (vbyte)", where, vb,
+                      bs.vbyte_encode_plain(x)),
+              compare("bytesplit_encode (streamvbyte)", where, (ctrl, data),
+                      bs.svb_encode_plain(x)))
+    res = {"bytesplit_encode": {"max_abs_err": err}}
+    got = bs.vbyte_decode(vb, n)
+    res["vbyte_decode"] = {"max_abs_err": compare(
+        "vbyte_decode", where, got, bs.vbyte_decode_plain(vb, n))}
+    require(torch.equal(got, x), "vbyte does not round-trip")
+    got = bs.svb_decode(ctrl, data, n)
+    res["svb_decode"] = {"max_abs_err": compare(
+        "svb_decode", where, got, bs.svb_decode_plain(ctrl, data, n))}
+    require(torch.equal(got, x), "streamvbyte does not round-trip")
+    if timed:
+        pairs = {
+            "bytesplit_encode": (lambda: bs.vbyte_encode(x),
+                                 lambda: bs.vbyte_encode_plain(x),
+                                 nbytes(x, vb), n),
+            "svb_decode": (lambda: bs.svb_decode(ctrl, data, n),
+                           lambda: bs.svb_decode_plain(ctrl, data, n),
+                           nbytes(ctrl, data, x), n),
+            "vbyte_decode": (lambda: bs.vbyte_decode(vb, n),
+                             lambda: bs.vbyte_decode_plain(vb, n),
+                             nbytes(vb, x), vb.numel())}
+        for name, (kern, plain, moved, items) in pairs.items():
+            res[name]["ms"] = cuda_ms(kern)
+            res[name]["plain_ms"] = cuda_ms(plain, PLAIN_RUNS, warm=False)
+            res[name].update(bound(name, moved, items))
+        res["bytesplit_encode"]["svb_ms"] = cuda_ms(lambda: bs.svb_encode(x))
     return res
 
 
@@ -244,9 +389,11 @@ def merge_errs(total: dict, res: dict) -> None:
 
 def print_timed(card: str, where: str, res: dict) -> None:
     for name, r in res.items():
-        print(f"{card} {name} at the shapes of {where}, S=4096: kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, max_abs_err "
-              f"{r['max_abs_err']}")
+        plain = ("not timed" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.3f} ms")
+        print(f"{card} {name} at the shapes of {where}: kernel "
+              f"{r['ms']:.3f} ms, plain {plain}, bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']}, max_abs_err {r['max_abs_err']}")
 
 
 def check_fixtures() -> int:
@@ -280,17 +427,21 @@ def find_record(path: Path, method: str, x: np.ndarray) -> dict:
     return recs[0]
 
 
+def counter_modules() -> dict:
+    from ans_tpu_torch.ops import bytesplit, decode, encode, place
+    return {"encode": encode, "place": place, "decode": decode,
+            "bytesplit": bytesplit}
+
+
 def reset_launches() -> None:
-    from ans_tpu_torch.ops import decode, encode, place
-    for mod in (encode, place, decode):
-        for attr in ("launches", "grouped_launches"):
-            if hasattr(mod, attr):
-                setattr(mod, attr, 0)
+    mods = counter_modules()
+    for _, _, counter in KERNELS.values():
+        mod, attr = counter.split(".")
+        setattr(mods[mod], attr, 0)
 
 
 def read_launches() -> dict:
-    from ans_tpu_torch.ops import decode, encode, place
-    mods = {"encode": encode, "place": place, "decode": decode}
+    mods = counter_modules()
     out = {}
     for name, (_, _, counter) in KERNELS.items():
         mod, attr = counter.split(".")
@@ -298,18 +449,25 @@ def read_launches() -> dict:
     return out
 
 
-SEARCH_PATH = ("encode_scan", "place", "decode_search")
-GROUPED_PATH = ("encode_scan_grouped", "place", "decode_grouped")
+def require_launched(what: str, launches: dict, kernels) -> None:
+    for kernel in kernels:
+        require(launches[kernel] > 0, f"{what} never launched {kernel}")
+
+
+ENCODE_PATH = {"search": ("encode_scan", "place"),
+               "grouped": ("encode_scan_grouped", "place")}
+DECODE_KERNEL = {"search": "decode_search", "grouped": "decode_grouped",
+                 "direct": "decode_direct"}
 
 
 def run_codec(card: str, name: str, x: np.ndarray, rec: dict,
-              engine: str, prepared: bool = False) -> dict:
+              layout: str, engine: str, also: str | None = None) -> dict:
     """encode/decode of `name` on x through the user's entry points: the
     blob equals the record, decode is exact, the prepared decoder takes
-    `engine` and every kernel of that engine's path (SEARCH_PATH or
-    GROUPED_PATH) was launched by this run; with `prepared`, the prepared
-    encoder reproduces the bytes and both prepared calls are timed.
-    Returns the launches of this run and its numbers."""
+    `engine` (the rule's choice) and, forced, `also`; the prepared encoder
+    reproduces the bytes; every kernel of the layout's encode path and of
+    each engine was launched by this run.  Returns the launches of this
+    run and its numbers."""
     from ans_tpu_torch import models
     n = len(x)
     reset_launches()
@@ -324,33 +482,95 @@ def run_codec(card: str, name: str, x: np.ndarray, rec: dict,
     out = codec.decode(blob, n)
     e2e_dec = time.perf_counter() - t0
     require(np.array_equal(out, x), f"{name}: decode is not exact")
-    pd = models.prepare_decoder(name, blob, n, device=DEVICE)
-    require(pd.engine == engine,
-            f"{name}: prepared decoder engine {pd.engine}, not {engine}")
-    r = {"blob": blob, "e2e_enc": e2e_enc, "e2e_dec": e2e_dec}
-    if prepared:
-        pe = models.prepare_encoder(name, x, lanes=FULL_LANES, device=DEVICE)
-        require(pe.prelude + pe.to_bytes(*pe()) == blob,
-                f"{name}: prepared encoder bytes differ from encode()")
+    r = {"blob": blob, "e2e_enc": e2e_enc, "e2e_dec": e2e_dec, "dec_ms": {}}
+    pe = models.prepare_encoder(name, x, lanes=FULL_LANES, device=DEVICE)
+    require(pe.prelude + pe.to_bytes(*pe()) == blob,
+            f"{name}: prepared encoder bytes differ from encode()")
+    r["enc_ms"] = cuda_ms(pe)
+    for eng in (None, also) if also else (None,):
+        pd = models.prepare_decoder(name, blob, n, device=DEVICE, engine=eng)
+        require(pd.engine == (eng or engine),
+                f"{name}: prepared decoder engine {pd.engine}, not "
+                f"{eng or engine}")
         require(np.array_equal(pd.to_host(pd()), x),
-                f"{name}: prepared decoder output differs from the input")
-        r["enc_ms"] = cuda_ms(pe)
-        r["dec_ms"] = cuda_ms(pd)
+                f"{name}: prepared decoder ({pd.engine}) output differs "
+                f"from the input")
+        r["dec_ms"][pd.engine] = cuda_ms(pd)
     torch.cuda.synchronize()
     r["launches"] = read_launches()
-    for kernel in SEARCH_PATH if engine == "search" else GROUPED_PATH:
-        require(r["launches"][kernel] > 0,
-                f"{name} on the {engine} engine never launched {kernel}")
+    require_launched(f"{name} on the {engine} engine", r["launches"], (
+        *ENCODE_PATH[layout], DECODE_KERNEL[engine],
+        *((DECODE_KERNEL[also],) if also else ())))
     print(f"{card} {name}: {len(blob)} bytes, {8 * len(blob) / n:.4f} bpi, "
-          f"sha256 {sha256(blob)[:12]}, engine {pd.engine}; e2e (host "
+          f"sha256 {sha256(blob)[:12]}, engine {engine}; e2e (host "
           f"clock, host data) encode {e2e_enc:.3f} s, decode "
           f"{e2e_dec:.3f} s")
-    if prepared:
-        print(f"{card} {name}: prepared encode "
-              f"{n / r['enc_ms'] / 1e3:.1f}M ints/s ({r['enc_ms']:.3f} ms), "
-              f"prepared decode {n / r['dec_ms'] / 1e3:.1f}M ints/s "
-              f"({r['dec_ms']:.3f} ms)")
+    print(f"{card} {name}: prepared encode "
+          f"{n / r['enc_ms'] / 1e3:.1f}M ints/s ({r['enc_ms']:.3f} ms), "
+          f"prepared decode " + ", ".join(
+              f"{eng} {n / ms / 1e3:.1f}M ints/s ({ms:.3f} ms)"
+              for eng, ms in r["dec_ms"].items()))
     return r
+
+
+def run_byte_codec(card: str, name: str, x: np.ndarray, path: Path) -> dict:
+    """A byte-path method on x through models.get: the split stream of its
+    splitter and the composite's blob equal the records, both decode
+    exactly, and this run launched K7, K1, K2 on encode and K4 and the
+    splitter's decode kernel (K9 for vbyte, K8 for streamvbyte) on decode.
+    Times the AnsByte prepared decode under "direct" (the rule's choice)
+    and under "search"."""
+    from ans_tpu_torch import models
+    n = len(x)
+    splitter = name[:-3]
+    reset_launches()
+    split = models.get(splitter, device=DEVICE)
+    rec = find_record(path, splitter, x)
+    stream = split.encode(x)
+    require(len(stream) == rec["blob_len"] and sha256(stream)
+            == rec["blob_sha256"],
+            f"{splitter}: split stream differs from the record")
+    require(np.array_equal(split.decode(stream, n), x),
+            f"{splitter}: decode is not exact")
+    del stream
+    rec = find_record(path, name, x)
+    codec = models.get(name, device=DEVICE)
+    t0 = time.perf_counter()
+    blob = codec.encode(x)
+    e2e_enc = time.perf_counter() - t0
+    require(len(blob) == rec["blob_len"] and sha256(blob)
+            == rec["blob_sha256"],
+            f"{name}: blob differs from the record: {len(blob)} bytes")
+    t0 = time.perf_counter()
+    out = codec.decode(blob, n)
+    e2e_dec = time.perf_counter() - t0
+    require(np.array_equal(out, x), f"{name}: decode is not exact")
+    nb = int.from_bytes(blob[:4], "little")
+    dec_ms = {}
+    want = None
+    for eng in (None, "search"):
+        pd = codec.entropy.prepare_decoder(blob[4:], nb, eng)
+        require(pd.engine == (eng or "direct"),
+                f"{name}: AnsByte decoder engine {pd.engine}")
+        got = pd()
+        require(want is None or torch.equal(got, want),
+                f"{name}: the engines decode AnsByte's blob differently")
+        want = got
+        dec_ms[pd.engine] = cuda_ms(pd)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require_launched(name, launches, (
+        "bytesplit_encode", "encode_scan", "place", "decode_direct",
+        "decode_search",
+        "vbyte_decode" if splitter == "vbyte" else "svb_decode"))
+    print(f"{card} {name}: {len(blob)} bytes, {8 * len(blob) / n:.4f} bpi "
+          f"({nb} split bytes, S={rec['lanes']}), sha256 "
+          f"{sha256(blob)[:12]}; e2e (host clock, host data) encode "
+          f"{e2e_enc:.3f} s, decode {e2e_dec:.3f} s; AnsByte prepared "
+          f"decode " + ", ".join(f"{eng} {ms:.3f} ms ({nb / ms / 1e3:.1f}M "
+                                 f"bytes/s)" for eng, ms in dec_ms.items()))
+    return {"launches": launches, "dec_ms": dec_ms, "e2e_enc": e2e_enc,
+            "e2e_dec": e2e_dec}
 
 
 def main() -> int:
@@ -360,6 +580,7 @@ def main() -> int:
     from ans_tpu_torch.csrc import build
     from ans_tpu_torch.inputs import bench_input, dense_input, zipf20_input
     from ans_tpu_torch.models.ans import AnsFold, AnsInt
+    from ans_tpu_torch.models.bytes import AnsByte, Vbyte
 
     # 0. device
     kind = torch.cuda.get_device_name(0)
@@ -371,15 +592,23 @@ def main() -> int:
     card = f"[{smi}]"
     print(f"device: {kind}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, numpy {np.__version__}")
+    t_start = time.perf_counter()
 
     # 1. build
-    t0 = time.perf_counter()
     build.load_all(tuple(KERNELS))
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(KERNELS)} "
+    print(f"build: {time.perf_counter() - t_start:.1f} s for {len(KERNELS)} "
           f"kernels in parallel ({build.NVCC_FLAGS[0]})")
     for name, log in build.build_log.items():
         for fn, line in ptxas_report(log):
             print(f"  {name}: {fn}: {line}")
+
+    def on_card(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(x.view(np.int32)).to(DEVICE)
+
+    def byte_stage(x: np.ndarray, lanes: int) -> Stage:
+        """AnsByte's frame over the vbyte split stream of x."""
+        return Stage(AnsByte(device=DEVICE),
+                     Vbyte(device=DEVICE).split(on_card(x)), lanes)
 
     # 2. kernels against their plain versions
     errs = {}
@@ -388,23 +617,35 @@ def main() -> int:
         for what, st in (
                 ("ANSfold-2", lambda: Stage(AnsFold(2, device=DEVICE),
                                             bench_input(1 << 20, 7), lanes)),
+                ("AnsByte", lambda: byte_stage(z20, lanes)),
                 ("ANSfold-7", lambda: Stage(AnsFold(7, device=DEVICE), z20,
                                             lanes)),
                 ("ANS (no escape)", lambda: Stage(AnsInt(device=DEVICE),
                                                   dense_input(1 << 20),
                                                   lanes)),
-                ("identity frame", lambda: IdentityStage(1 << 20, lanes))):
+                ("identity frame", lambda: FrameStage(
+                    identity_frame(), 1 << 20, lanes, True)),
+                ("small grouped frame", lambda: FrameStage(
+                    small_grouped_frame(), 1 << 20, lanes, False))):
             res = check_kernels(st(), timed=False)
             merge_errs(errs, res)
             print(f"kernels == plain, {what} at n=2^20, S={lanes}: "
                   + ", ".join(f"{k} max_abs_err {v['max_abs_err']}"
                               for k, v in res.items()))
+    rng = np.random.default_rng(9)
+    mixed = rng.integers(0, 1 << 32, size=1 << 20, dtype=np.uint32) >> (
+        rng.integers(0, 32, size=1 << 20).astype(np.uint32))
+    res = check_bytesplit(on_card(mixed), timed=False)
+    merge_errs(errs, res)
+    print("kernels == plain, values of every byte length at n=2^20: "
+          + ", ".join(f"{k} max_abs_err {v['max_abs_err']}"
+                      for k, v in res.items()))
     full = bench_input(FULL_N, FULL_SEED)
     rec = find_record(LANE_FIXTURES / "fullwidth.json", "ANSfold-2", full)
     kres = check_kernels(Stage(AnsFold(2, device=DEVICE), full, FULL_LANES),
                          timed=True)
     merge_errs(errs, kres)
-    print_timed(card, "the main path, n=2^25", kres)
+    print_timed(card, "the main path, n=2^25, S=4096", kres)
     torch.cuda.synchronize()
 
     # 3. golden fixtures
@@ -412,14 +653,10 @@ def main() -> int:
           f"decoded exactly")
     torch.cuda.synchronize()
 
-    # 4. the main path at full width, through the user's entry points
-    main_run = run_codec(card, "ANSfold-2", full, rec, "search",
-                         prepared=True)
-    plain_enc = kres["encode_scan"]["plain_ms"] + kres["place"]["plain_ms"]
-    plain_dec = kres["decode_search"]["plain_ms"]
-    print(f"{card} plain versions: encode scan + place "
-          f"{FULL_N / plain_enc / 1e3:.1f}M ints/s, decode "
-          f"{FULL_N / plain_dec / 1e3:.1f}M ints/s")
+    # 4. the main path at full width, through the user's entry points: the
+    # rule takes its decode to K4; K3 runs forced
+    main_run = run_codec(card, "ANSfold-2", full, rec, "search", "direct",
+                         also="search")
     del full
 
     # 5. the grouped path at full width: ANSfold-7 on zipf20
@@ -427,39 +664,68 @@ def main() -> int:
     zrec = LANE_FIXTURES / "fullwidth_zipf20.json"
     grouped_run = run_codec(card, "ANSfold-7", z20,
                             find_record(zrec, "ANSfold-7", z20), "grouped",
-                            prepared=True)
+                            "grouped")
     gres = check_kernels(Stage(AnsFold(7, device=DEVICE), z20, FULL_LANES),
-                         timed=True, plain_runs=PLAIN_RUNS)
+                         timed=True)
     merge_errs(errs, gres)
-    print_timed(card, "ANSfold-7, zipf20, n=2^25", gres)
+    print_timed(card, "ANSfold-7, zipf20, n=2^25, S=4096", gres)
 
     # 6. ANS on zipf20: the tail escape onto the pivot search (depth 13,
-    # NR = 3, one exception round)
+    # NR = 3, one exception round; M = 2^22 is far past K4's tables)
     run_codec(card, "ANS", z20, find_record(zrec, "ANS", z20), "search",
-              prepared=True)
+              "search")
     ares = check_kernels(Stage(AnsInt(device=DEVICE), z20, FULL_LANES),
-                         timed=True, plain_runs=PLAIN_RUNS)
+                         timed=True)
     merge_errs(errs, ares)
-    print_timed(card, "ANS, zipf20, n=2^25", ares)
-    del z20
+    print_timed(card, "ANS, zipf20, n=2^25, S=4096", ares)
 
     # 7. ANS without the escape: K6 on ranks, K5 with a value table
     dense = dense_input(DENSE_N)
     run_codec(card, "ANS", dense, find_record(zrec, "ANS", dense), "grouped",
-              prepared=True)
+              "grouped")
     dres = check_kernels(Stage(AnsInt(device=DEVICE), dense, FULL_LANES),
-                         timed=True, plain_runs=PLAIN_RUNS)
+                         timed=True)
     merge_errs(errs, dres)
-    print_timed(card, "ANS, dense22, n=2^22", dres)
+    print_timed(card, "ANS, dense22, n=2^22, S=4096", dres)
+    del dense
 
-    launches = {name: main_run["launches"][name] for name in SEARCH_PATH}
+    # 8. the byte path at full width: vbyteANS and streamvbyteANS on zipf20
+    brec = LANE_FIXTURES / "fullwidth_bytes.json"
+    byte_run = run_byte_codec(card, "vbyteANS", z20, brec)
+    svb_run = run_byte_codec(card, "streamvbyteANS", z20, brec)
+    sres = check_bytesplit(on_card(z20), timed=True)
+    merge_errs(errs, sres)
+    print_timed(card, "the byte path, zipf20, n=2^25", sres)
+    print(f"{card} bytesplit_encode, streamvbyte format, same input: "
+          f"kernel {sres['bytesplit_encode']['svb_ms']:.3f} ms")
+    bres = check_kernels(byte_stage(z20, FULL_LANES), timed=True,
+                         plain_search=False)
+    merge_errs(errs, bres)
+    print_timed(card, "AnsByte on the vbyte stream of zipf20, S=4096", bres)
+    del z20
+
+    launches = {name: main_run["launches"][name]
+                for name in ("encode_scan", "place", "decode_search")}
     launches.update({name: grouped_run["launches"][name] for name in
                      ("encode_scan_grouped", "decode_grouped")})
-    timed = {**gres, **kres}  # K2 keeps its main-path time
+    launches.update({name: byte_run["launches"][name] for name in
+                     ("decode_direct", "bytesplit_encode", "vbyte_decode")})
+    launches["svb_decode"] = svb_run["launches"]["svb_decode"]
+    # each kernel at its own path's shapes: K1-K3 the main path's, K4
+    # AnsByte's, K5/K6 the grouped path's, K7-K9 the byte path's
+    timed = {**gres, **sres, **bres, **{k: kres[k] for k in (
+        "encode_scan", "place", "decode_search")}}
+    print(f"{card} decode_direct at the main path's shapes: "
+          f"{kres['decode_direct']['ms']:.3f} ms against decode_search "
+          f"{kres['decode_search']['ms']:.3f} ms")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"]}
+         "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
+         "bound_ms": timed[name]["bound_ms"],
+         "bound_by": timed[name]["bound_by"], "library_ms": None}
         for name, (src, tpu, _) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

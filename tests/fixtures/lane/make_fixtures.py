@@ -1,7 +1,7 @@
 """Write the golden lane-format fixtures with the JAX reference package.
 
     JAX_PLATFORMS=cpu python tests/fixtures/lane/make_fixtures.py \
-        [--full-width] [--grouped-full-width]
+        [--full-width] [--grouped-full-width] [--bytes-full-width]
         [--full-width-input FILE --numpy VERSION [--kind KIND]]
 
 Writes, next to this file:
@@ -22,7 +22,12 @@ Writes, next to this file:
                               ANSfold-7 and ANS on zipf20 (Zipf(1) over
                               2^20 values, n = 2^25, seed 0) and ANS on
                               dense22 (n = 2^22, an alphabet of 2^16 the
-                              tail escape declines).
+                              tail escape declines);
+  * fullwidth_bytes.json      (--bytes-full-width) the records of the byte
+                              path at full width on zipf20 (n = 2^25):
+                              the vbyte and streamvbyte split streams and
+                              the vbyteANS and streamvbyteANS blobs
+                              (default lane count of the split stream).
 
 numpy's zipf sampler is not stable across numpy releases (2.0.2 and 2.3.5
 draw different values from one seed), so the full-width records keep one
@@ -182,6 +187,10 @@ def main(argv=None) -> None:
     ap.add_argument("--grouped-full-width", action="store_true",
                     help="add this numpy's zipf20 and dense22 streams to "
                          "fullwidth_zipf20.json")
+    ap.add_argument("--bytes-full-width", action="store_true",
+                    help="add this numpy's zipf20 stream under vbyte, "
+                         "streamvbyte, vbyteANS and streamvbyteANS to "
+                         "fullwidth_bytes.json")
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -207,6 +216,8 @@ def main(argv=None) -> None:
     if args.grouped_full_width:
         add_full_width("zipf20", zipf20_input(), np.__version__)
         add_full_width("dense22", dense22_input(), np.__version__)
+    if args.bytes_full_width:
+        add_bytes_full_width(zipf20_input(), np.__version__)
     if args.full_width_input:
         import lzma
         raw = lzma.decompress(Path(args.full_width_input).read_bytes())
@@ -264,6 +275,47 @@ def add_full_width(kind: str, x: np.ndarray, numpy_version: str) -> None:
             entry = {"input": kind, "method": method, **entry}
         rec["inputs"] = [e for e in rec["inputs"]
                          if (e["input_sha256"], e.get("method", method))
+                         != (input_sha, method)]
+        rec["inputs"].append(entry)
+    path.write_text(json.dumps(rec, indent=1) + "\n")
+
+
+BYTE_METHODS = ("vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS")
+
+BYTES_HEADER = {
+    "generators": {"zipf20": ZIPF20_HEADER["generators"]["zipf20"]},
+    "lanes": None, "note": "vbyte / streamvbyte blobs are the split "
+    "streams; the composites are a u32 count of split bytes, then the "
+    "AnsByte blob at the default lane count of the split stream"}
+
+
+def add_bytes_full_width(x: np.ndarray, numpy_version: str) -> None:
+    """Encode zipf20 with the four byte-path methods of ans_tpu's registry
+    and merge the entries into fullwidth_bytes.json (keyed as
+    add_full_width keys them).  The composites' entries also record the
+    AnsByte frame behind the 4-byte count."""
+    from ans_tpu import models
+    from ans_tpu.models import framing
+    from ans_tpu.reference_model.rans_compat import byte_prelude_decode
+    path = HERE / "fullwidth_bytes.json"
+    rec = (json.loads(path.read_text()) if path.exists()
+           else {**BYTES_HEADER, "inputs": []})
+    input_sha = sha256(x.tobytes())
+    for method in BYTE_METHODS:
+        blob = models.get(method).encode(x)
+        entry = {"input": "zipf20", "method": method, "numpy": numpy_version,
+                 "input_sha256": input_sha, "blob_len": len(blob),
+                 "blob_sha256": sha256(blob)}
+        if method.endswith("ANS"):
+            nfreqs, off = byte_prelude_decode(blob[4:])
+            S, _, payload, t_sec, sec_len = framing.parse(blob[4:], off)
+            entry.update(split_len=int.from_bytes(blob[:4], "little"),
+                         M=int(nfreqs.sum()),
+                         sigma=int(np.count_nonzero(nfreqs)), lanes=S,
+                         t_sec=int(t_sec), sections=len(sec_len),
+                         stream_len=len(payload))
+        rec["inputs"] = [e for e in rec["inputs"]
+                         if (e["input_sha256"], e["method"])
                          != (input_sha, method)]
         rec["inputs"].append(entry)
     path.write_text(json.dumps(rec, indent=1) + "\n")

@@ -9,7 +9,10 @@ chip_smoke.py covers the main paths at full width; these cover the edges:
 lane counts from 1 to 2^14 (one to sixteen lanes per decode thread),
 three renorm rounds, three exception bytes, corrupt streams, and for the
 grouped kernels K5/K6 one-group frames, ~2^12 groups, per-rank tables too
-large for shared memory and out-of-range ranks.
+large for shared memory and out-of-range ranks; for the direct kernel K4
+tables past 48 KB, both slot orders and frames that do not fit; for the
+byte splitters K7-K9 every element length, ragged sizes and corrupt
+streams.
 """
 
 import json
@@ -19,11 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import adjust_freqs
+from ans_tpu_torch.models import engine
 from ans_tpu_torch.models.ans import AnsFold, AnsInt, _stage, _stage_ts
-from ans_tpu_torch.ops import decode, encode, grouped, lane_codec, place, tables
+from ans_tpu_torch.ops import (bytesplit, decode, encode, grouped, lane_codec,
+                               place, tables)
 from ans_tpu_torch.ops.mappings import fold_map_hist
+from ans_tpu_torch.reference_model import mappings as map_np
+from ans_tpu_torch.reference_model.model import adjust_freqs
 
 LANE_FIXTURES = Path(__file__).parent / "fixtures" / "lane"
 
@@ -61,8 +66,8 @@ def _fold_tables(x, fidelity, device):
             tables.to_device(st, device))
 
 
-def _run_all(mapped, k, low, enc, dec, n, S):
-    """Kernels and plain versions on the same device tensors."""
+def _encode_all(mapped, k, low, enc, n, S):
+    """K1 and K2 against their plain versions: (stream, states, T)."""
     T = lane_codec.lane_steps(n, S)
     m_ts, nb_ts, ex_ts = _stage_ts(mapped, k, low, n, S, T)
     packed, states = encode.encode_scan(m_ts, n, enc)
@@ -72,13 +77,19 @@ def _run_all(mapped, k, low, enc, dec, n, S):
     args = (packed, nb_ts, ex_ts, n, rb, int(total))
     stream = place.place(*args)
     assert torch.equal(stream, lane_codec.place_plain(*args))
+    return stream, states, T
+
+
+def _run_all(mapped, k, low, enc, dec, n, S):
+    """Kernels and plain versions on the same device tensors."""
+    stream, states, T = _encode_all(mapped, k, low, enc, n, S)
     out = decode.decode_search(stream, states, dec, n, T)
     assert torch.equal(out, lane_codec.decode_search_plain(stream, states,
                                                            dec, n, T))
     return out, stream, states, T
 
 
-@pytest.mark.parametrize("S", [1, 32, 128, 2048, 8192])
+@pytest.mark.parametrize("S", [1, 32, 128, 2048, 8192, 16384])
 @pytest.mark.parametrize("wide", [False, True])
 def test_kernels_match_plain(cuda, S, wide):
     n = 20 * S + 7 if S > 1 else 500
@@ -254,6 +265,15 @@ def test_grouped_one_group(cuda, S):
     assert dec.table.numel() == 0
 
 
+def test_grouped_sixteen_lanes_a_thread_with_exceptions(cuda):
+    """S = 16384 with exception rounds: the 16-lane instance of K5 on
+    five byte rounds a step."""
+    f = np.ones(9000, np.int64)
+    f[:7384] = 2
+    nf = np.random.default_rng(7).permutation(f).astype(np.uint64)
+    _frame_run(nf, 16384, cuda, n=20 * 16384 + 7, exceptions=True)
+
+
 def _many_groups_freqs(seed=3):
     """2892 distinct frequencies plus 8192 symbols of frequency 1, summing
     to 2^22: NG near its sqrt(2M) bound, K6's tables past 48 KB."""
@@ -296,3 +316,187 @@ def test_grouped_corrupt_stream_and_rank_raise(cuda):
     bad[1, 5] = len(lay.rank_of)
     with pytest.raises(ValueError, match="outside"):
         encode.encode_scan_grouped(bad, 64, byval)
+
+
+# --------------------------------------------------------------------------
+# the direct kernel K4 (decode_direct)
+# --------------------------------------------------------------------------
+
+def _direct(table, cuda):
+    return tables.to_device(tables.materialize_slots(table), cuda)
+
+
+def _fold_host_table(x, fidelity):
+    mapped, k, low, hist = fold_map_hist(
+        torch.from_numpy(x.view(np.int32)), fidelity=fidelity,
+        length=1 << (fidelity + 9))
+    freqs = hist.numpy().astype(np.uint64)
+    nfreqs = adjust_freqs(freqs, int(np.flatnonzero(freqs)[-1]), True, 1)
+    syms = np.arange(len(nfreqs), dtype=np.uint32)
+    return tables.build_search_table(
+        nfreqs, *map_np.fold_unmap_high(syms, fidelity))
+
+
+@pytest.mark.parametrize("S", [1, 32, 4096, 16384])
+@pytest.mark.parametrize("wide", [False, True])
+def test_direct_matches_plain_and_search(cuda, S, wide):
+    n = 20 * S + 7 if S > 1 else 500
+    x = _values(n, S + 1, wide)
+    mapped, k, low, enc, dec = _fold_tables(x, 2, cuda)
+    stream, states, T = _encode_all(mapped, k, low, enc, n, S)
+    dd = _direct(_fold_host_table(x, 2), cuda)
+    count = decode.direct_launches
+    got = decode.decode_direct(stream, states, dd, n, T)
+    assert decode.direct_launches == count + 1
+    assert torch.equal(got, lane_codec.decode_direct_plain(stream, states,
+                                                           dd, n, T))
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32).reshape(-1)[:n], x)
+    assert torch.equal(got, decode.decode_search(stream, states, dec, n, T))
+
+
+def test_direct_tables_past_48k(cuda):
+    """Fold-8 with ~8k live symbols: 16 bytes a symbol and 2 a slot pass
+    48 KB, so K4 runs on opted-in dynamic shared memory."""
+    n, S = 60000, 256
+    x = np.random.default_rng(4).integers(0, 8150, size=n).astype(np.uint32)
+    mapped, k, low, enc, dec = _fold_tables(x, 8, cuda)
+    out, stream, states, T = _run_all(mapped, k, low, enc, dec, n, S)
+    host = _fold_host_table(x, 8)
+    assert 48 * 1024 < tables.direct_table_bytes(host) \
+        <= tables.DIRECT_TABLE_BYTES
+    dd = _direct(host, cuda)
+    got = decode.decode_direct(stream, states, dd, n, T)
+    assert torch.equal(got, lane_codec.decode_direct_plain(stream, states,
+                                                           dd, n, T))
+    assert torch.equal(got, out)
+    with pytest.raises(ValueError, match="corrupt"):
+        decode.decode_direct(stream[: stream.numel() // 2].clone(), states,
+                             dd, n, T)
+
+
+@pytest.mark.parametrize("exceptions", [False, True])
+def test_direct_reads_grouped_slot_order(cuda, exceptions):
+    """A frequency-grouped frame small enough for K4 (9000 symbols,
+    M = 2^14): the per-slot table follows the rank order, and K4 decodes
+    what K5 decodes."""
+    f = np.ones(9000, np.int64)
+    f[:7384] = 2
+    nf = np.random.default_rng(6).permutation(f).astype(np.uint64)
+    assert int(nf.sum()) == 1 << 14
+    lay, dec, stream, states, T, _ = _frame_run(nf, 4096, cuda, n=50000,
+                                                exceptions=exceptions)
+    ids = np.arange(len(nf), dtype=np.uint32)
+    hi_nb = ((ids << np.uint32(8), np.ones(len(nf), np.uint32))
+             if exceptions else (None, None))
+    gt = tables.build_grouped_table(nf, *hi_nb)
+    assert tables.direct_fits(gt)
+    dd = _direct(gt, cuda)
+    got = decode.decode_direct(stream, states, dd, 50000, T)
+    assert torch.equal(got, lane_codec.decode_direct_plain(stream, states,
+                                                           dd, 50000, T))
+    assert torch.equal(got, decode.decode_grouped(stream, states, dec, 50000,
+                                                  T))
+
+
+def test_direct_refuses_frames_that_do_not_fit(cuda):
+    """M = 2^17: 256 KB of slot indices alone; the rule never picks
+    "direct", forcing it raises, and so does the wrapper."""
+    nf = np.full(4096, 32, np.uint64)
+    st = tables.build_search_table(nf)
+    assert not tables.direct_fits(st)
+    assert engine.choose_decode_engine(st, 4096) == "search"
+    payload, states = np.zeros(8, np.uint8), np.full(32, 1 << 23, np.uint32)
+    with pytest.raises(ValueError, match="not eligible"):
+        engine.PreparedDecoder(payload, states, st, 64, S=32, T=2,
+                               sec_len=[8], device=cuda, engine="direct")
+    with pytest.raises(ValueError, match="shared memory"):
+        decode.decode_direct(
+            torch.zeros(8, dtype=torch.uint8, device=cuda),
+            torch.full((32,), 1 << 23, dtype=torch.int32, device=cuda),
+            _direct(st, cuda), 64, 2)
+
+
+# --------------------------------------------------------------------------
+# the byte splitters: K7 (encode), K8 (streamvbyte decode), K9 (vbyte decode)
+# --------------------------------------------------------------------------
+
+def _mixed(n, seed):
+    """Values of every byte length, 2^28 and 2^31 and above included."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+    m = rng.random(n)
+    x = np.where(m < .4, x & 0x7F, np.where(m < .6, x & 0x3FFF, np.where(
+        m < .75, x & 0xFFFFFF, x))).astype(np.uint32)
+    edge = np.array([0, 127, 128, (1 << 14) - 1, 1 << 14, (1 << 21) - 1,
+                     1 << 21, (1 << 28) - 1, 1 << 28, 1 << 31, (1 << 32) - 1,
+                     255, 256, 65535, 65536, (1 << 24) - 1, 1 << 24],
+                    dtype=np.uint32)
+    x[: min(n, len(edge))] = edge[:n]
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 3, 100, 1024, 5000, 70001, (1 << 20) + 3])
+def test_bytesplit_kernels_match_plain(cuda, n):
+    x = torch.from_numpy(_mixed(n, n).view(np.int32)).to(cuda)
+    counts = (bytesplit.encode_launches, bytesplit.vbyte_decode_launches,
+              bytesplit.svb_decode_launches)
+    vb = bytesplit.vbyte_encode(x)
+    assert torch.equal(vb, bytesplit.vbyte_encode_plain(x))
+    ctrl, data = bytesplit.svb_encode(x)
+    pc, pdata = bytesplit.svb_encode_plain(x)
+    assert torch.equal(ctrl, pc) and torch.equal(data, pdata)
+    got = bytesplit.vbyte_decode(vb, n)
+    assert torch.equal(got, bytesplit.vbyte_decode_plain(vb, n))
+    assert torch.equal(got, x)
+    got = bytesplit.svb_decode(ctrl, data, n)
+    assert torch.equal(got, bytesplit.svb_decode_plain(ctrl, data, n))
+    assert torch.equal(got, x)
+    assert (bytesplit.encode_launches, bytesplit.vbyte_decode_launches,
+            bytesplit.svb_decode_launches) == (counts[0] + 2, counts[1] + 1,
+                                               counts[2] + 1)
+    # a joined stream as the codecs hand it over: the data bytes start at
+    # an odd address
+    joined = torch.cat([ctrl, data])
+    nc = -(-n // 4)
+    assert torch.equal(bytesplit.svb_decode(joined[:nc], joined[nc:], n), x)
+    # fewer elements than the stream holds: the rest is ignored
+    if n > 3:
+        assert torch.equal(bytesplit.vbyte_decode(vb, n - 3), x[: n - 3])
+
+
+def test_bytesplit_corrupt_streams_raise(cuda):
+    n = 5000
+    x = torch.from_numpy(_mixed(n, 7).view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)
+    with pytest.raises(ValueError, match="holds"):
+        bytesplit.vbyte_decode(vb[:-1].clone(), n)
+    with pytest.raises(ValueError, match="holds"):
+        bytesplit.vbyte_decode(vb, n + 1)
+    bad = torch.cat([vb[:100], torch.full((5,), 0x80, dtype=torch.uint8,
+                                          device=cuda), vb[100:]])
+    with pytest.raises(ValueError, match="longer than 5"):
+        bytesplit.vbyte_decode(bad, n)
+    ctrl, data = bytesplit.svb_encode(x)
+    with pytest.raises(ValueError, match="corrupt"):
+        bytesplit.svb_decode(ctrl, data[:-1].clone(), n)
+    with pytest.raises(ValueError, match="corrupt"):
+        bytesplit.svb_decode(ctrl[:-1].clone(), data, n)
+    with pytest.raises(ValueError, match="empty"):
+        bytesplit.vbyte_encode(x[:0])
+
+
+@pytest.mark.parametrize("name", ["vbyte", "streamvbyte", "vbyteANS",
+                                  "streamvbyteANS"])
+def test_byte_codecs_on_card_equal_cpu(cuda, name):
+    """The card's blobs equal the CPU path's (which the CPU tests hold
+    equal to ans_tpu's), both decode both, and the composites' decoder
+    takes the rule's engine."""
+    from ans_tpu_torch import models
+    x = _mixed(70001, 11)
+    on_card = models.get(name, device=cuda)
+    on_cpu = models.get(name, device="cpu")
+    blob = on_card.encode(x)
+    assert blob == on_cpu.encode(x)
+    np.testing.assert_array_equal(on_card.decode(blob, len(x)), x)
+    np.testing.assert_array_equal(on_cpu.decode(blob, len(x)), x)

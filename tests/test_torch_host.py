@@ -1,12 +1,16 @@
 """ans_tpu_torch host layers against ans_tpu: the NumPy copies of the
-lane-count policy, the fmt-2 framing, the table builders, the grouped
-slot layout and the tail-escape plan must equal the reference's exactly,
-and the package must import without JAX."""
+constants, the frame search and the preludes, the interpolative coder,
+the byte coder's model, the lane-count policy, the fmt-2 framing, the
+lane tables, the grouped slot layout and the tail-escape plan must
+equal the reference's exactly, and the package must import with neither
+JAX nor ans_tpu."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,11 +21,20 @@ from ans_tpu.models import framing as jframing
 from ans_tpu.ops import escape as jescape
 from ans_tpu.ops import grouped as jgrouped
 from ans_tpu.ops import tables as jtables
+import ans_tpu.constants as jconstants
+from ans_tpu.reference_model import interp as jinterp
+from ans_tpu.reference_model import mappings as jmappings
+from ans_tpu.reference_model import model as jmodel
+from ans_tpu.reference_model import rans_compat as jcompat
+from ans_tpu.reference_model import vbyte as jvbyte
 from ans_tpu.reference_model.model import adjust_freqs
 from ans_tpu.utils.zipf import zipf
+import ans_tpu_torch.constants as constants
 from ans_tpu_torch.csrc import build
 from ans_tpu_torch.models import config, framing
 from ans_tpu_torch.ops import escape, grouped, tables
+from ans_tpu_torch.reference_model import (byte_model, interp, mappings,
+                                           model, vbyte)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -197,37 +210,40 @@ def test_to_device_accepts_reference_tables(kind):
 
 
 def test_imports_without_jax():
-    """The port runs where JAX is absent: importing every module with
-    `jax` blocked must work, and must load no JAX-importing part of
-    ans_tpu (only ans_tpu.constants and ans_tpu.reference_model); the
-    grouped layout and the tail escape run there too."""
+    """The port runs where neither JAX nor ans_tpu is present: importing
+    every module, chip_smoke.py included, with `jax` and `ans_tpu` blocked
+    must work; ANSfold-2, ANS (the grouped layout and the tail escape) and
+    vbyteANS round-trip there."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["ans_tpu"] = None
+        import importlib, pkgutil
         import ans_tpu_torch
-        import ans_tpu_torch.models, ans_tpu_torch.models.engine
-        import ans_tpu_torch.ops.encode, ans_tpu_torch.ops.place
-        import ans_tpu_torch.ops.decode, ans_tpu_torch.ops.mappings
-        import ans_tpu_torch.ops.grouped, ans_tpu_torch.ops.escape
-        import ans_tpu_torch.csrc.build, ans_tpu_torch.profile_idle
+        names = [m.name for m in pkgutil.walk_packages(
+            ans_tpu_torch.__path__, "ans_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert {"ans_tpu_torch.models.bytes", "ans_tpu_torch.ops.bytesplit",
+                "ans_tpu_torch.reference_model.byte_model",
+                "ans_tpu_torch.bench_crossover", "ans_tpu_torch.constants",
+                "ans_tpu_torch.profile_idle"} <= set(names), names
+        import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
         x = (np.arange(3000) % 700).astype(np.uint32) ** 2
-        codec = models.get("ANSfold-2", device="cpu")
-        assert (codec.decode(codec.encode(x), len(x)) == x).all()
+        for name in ("ANSfold-2", "vbyteANS", "streamvbyteANS"):
+            codec = models.get(name, device="cpu")
+            assert (codec.decode(codec.encode(x), len(x)) == x).all(), name
         twice = np.repeat(np.arange(1 << 14), 2).astype(np.uint32)
         wide = np.arange(9000, dtype=np.uint32) * 5
         for name, v in (("ANS", twice), ("ANSsint-80", wide),
                         ("ANSfold-8", wide)):
             codec = models.get(name, device="cpu")
             assert (codec.decode(codec.encode(v), len(v)) == v).all()
-        loaded = sorted(m for m in sys.modules
-                        if m.startswith("ans_tpu.") and sys.modules[m])
-        # ans_tpu.native is reference_model's optional C++ backend
-        bad = [m for m in loaded if not m.startswith(
-            ("ans_tpu.constants", "ans_tpu.reference_model",
-             "ans_tpu.native"))]
-        assert not bad, bad
+        loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                        and m.split(".")[0] in ("jax", "jaxlib", "ans_tpu"))
+        assert not loaded, loaded
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -235,6 +251,157 @@ def test_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_port_sources_import_neither_jax_nor_ans_tpu():
+    """No file of the port, nor chip_smoke.py, holds an import of `jax` or
+    of any `ans_tpu` module."""
+    pattern = re.compile(
+        r"^\s*(?:from|import)\s+(?:jax|jaxlib|ans_tpu)(?:[.\s]|$)", re.M)
+    files = sorted(Path(REPO, "ans_tpu_torch").rglob("*.py"))
+    files.append(Path(REPO, "chip_smoke.py"))
+    assert len(files) > 25
+    for path in files:
+        hits = pattern.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+    assert pattern.findall("import jax\n") and pattern.findall(
+        "    from ans_tpu.ops import x\n") and pattern.findall(
+        "from ans_tpu import models\n")
+    assert not pattern.findall("from ans_tpu_torch import models\n")
+
+
+# --------------------------------------------------------------------------
+# the copies of ans_tpu.constants and ans_tpu.reference_model
+# --------------------------------------------------------------------------
+
+def test_constants_equal_by_value():
+    names = [n for n in dir(jconstants) if n.isupper()]
+    assert len(names) == 13 and "BYTE_MAX_FRAME_SIZE" in names
+    for name in names:
+        assert getattr(constants, name) == getattr(jconstants, name), name
+    assert [n for n in dir(constants) if n.isupper()] == names
+    for f in range(1, 9):
+        for fn in ("fold_threshold", "fold_offset_step", "fold_max_sigma"):
+            assert getattr(constants, fn)(f) == getattr(jconstants, fn)(f)
+
+
+HOST_DATASETS = ["zipf12", "zipf_large", "geometric", "uniform_small",
+                 "wide", "tiny", "single_sym"]
+
+
+@pytest.mark.parametrize("dataset", HOST_DATASETS)
+@pytest.mark.parametrize("h_approx,u16,cap", [(1, False, None),
+                                              (80, True, None),
+                                              (1, True, 1 << 12)])
+def test_adjust_freqs_and_prelude_copies(datasets, dataset, h_approx, u16,
+                                         cap):
+    """The frame search (float order decides the frame) and the prelude,
+    both ways, on the conftest datasets; `single_sym` is the degenerate
+    one-symbol model the originals guard."""
+    x = datasets[dataset]
+    if int(x.max()) >= 1 << 16:
+        # huge raw alphabets go through the fold map, as the codecs do
+        x = jmappings.fold_map(x, 2)
+    freqs = np.bincount(x).astype(np.uint64)
+    want = jmodel.adjust_freqs(freqs, int(x.max()), u16, h_approx, cap)
+    got = model.adjust_freqs(freqs, int(x.max()), u16, h_approx, cap)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
+    M = int(want.sum())
+    assert model.entropy_ordered(freqs, len(x)) == jmodel.entropy_ordered(
+        freqs, len(x))
+    if M:
+        assert model.cross_entropy_ordered(freqs, got) == \
+            jmodel.cross_entropy_ordered(freqs, want)
+        blob = model.serialize_prelude(got, M)
+        assert blob == jmodel.serialize_prelude(want, M)
+        for load in (model.load_prelude, jmodel.load_prelude):
+            back, used = load(blob + b"tail")
+            np.testing.assert_array_equal(back, want)
+            assert used == len(blob)
+
+
+def test_model_degenerate_inputs():
+    one = np.zeros(43, np.uint64)
+    one[42] = 1000
+    np.testing.assert_array_equal(model.adjust_freqs(one, 42, False),
+                                  jmodel.adjust_freqs(one, 42, False))
+    for mod in (model, jmodel):
+        with pytest.raises(ValueError, match="all-zero"):
+            mod.adjust_freqs(np.zeros(5, np.uint64), 4, False)
+    for x in (0, 1, 2, 3, 4096, 4097, (1 << 31) + 5):
+        assert model.next_power_of_two(x) == jmodel.next_power_of_two(x)
+        assert model.is_power_of_two(x) == jmodel.is_power_of_two(x)
+
+
+@pytest.mark.parametrize("n,u", [(1, 1), (1, 7), (5, 5), (256, 4352),
+                                 (1000, 1 << 20), (3000, 3001)])
+def test_interp_copy(n, u):
+    rng = np.random.default_rng(n + u)
+    seq = np.sort(rng.choice(u, size=n, replace=False)).astype(np.uint64)
+    blob = interp.encode(seq, n, u)
+    assert blob == jinterp.encode(seq, n, u)
+    for mod in (interp, jinterp):
+        vals, words = mod.decode(b"\x00\x00\x00" + blob, n, u, bit_offset=24)
+        assert list(vals) == seq.tolist()
+        assert words == jinterp.decode(blob, n, u)[1]
+
+
+@pytest.mark.parametrize("x", [0, 1, 127, 128, 16383, 16384, (1 << 28) - 1,
+                               1 << 28, (1 << 32) - 1])
+def test_vbyte_header_copy(x):
+    blob = vbyte.encode_u32(x)
+    assert blob == jvbyte.encode_u32(x)
+    assert vbyte.decode_u32(b"\x80" + blob, 1) == jvbyte.decode_u32(
+        b"\x80" + blob, 1) == (x, 1 + len(blob))
+
+
+@pytest.mark.parametrize("fidelity", range(1, 9))
+def test_fold_unmap_copy(fidelity):
+    syms = np.arange(constants.fold_max_sigma(fidelity), dtype=np.uint32)
+    for a, b in zip(mappings.fold_unmap_high(syms, fidelity),
+                    jmappings.fold_unmap_high(syms, fidelity)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+def _byte_hists():
+    rng = np.random.default_rng(12)
+    one = np.zeros(256, np.uint64)
+    one[7] = 12345
+    sparse = np.zeros(256, np.uint64)
+    sparse[rng.choice(256, 37, replace=False)] = rng.integers(1, 10 ** 6, 37)
+    return {"one": one, "sparse": sparse,
+            "flat": np.full(256, 3, np.uint64),
+            "zipf": (10 ** 7 / np.arange(1, 257) ** 1.3).astype(np.uint64),
+            "skew": np.concatenate([[1 << 40], np.ones(255)]).astype(
+                np.uint64),
+            "vbyte": np.bincount(np.frombuffer(
+                b"".join(jvbyte.encode_u32(int(v)) for v in
+                         rng.zipf(1.2, 4000) % (1 << 30)), np.uint8),
+                minlength=256).astype(np.uint64)}
+
+
+@pytest.mark.parametrize("kind", sorted(_byte_hists()))
+def test_byte_model_copy(kind):
+    """The 256-symbol normaliser and the raw interp prelude over universe
+    4096 + 256, both ways."""
+    hist = _byte_hists()[kind]
+    want = jcompat.byte_adjust_freqs(hist)
+    got = byte_model.byte_adjust_freqs(hist)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
+    M = int(got.sum())
+    assert M <= constants.BYTE_MAX_FRAME_SIZE and M & (M - 1) == 0
+    prelude, nf = byte_model.byte_prelude_encode(hist)
+    jprelude, jnf = jcompat.byte_prelude_encode(hist)
+    assert prelude == jprelude == byte_model.byte_prelude_serialize(want)
+    np.testing.assert_array_equal(nf, jnf)
+    for decode in (byte_model.byte_prelude_decode,
+                   jcompat.byte_prelude_decode):
+        back, off = decode(prelude + b"stream")
+        np.testing.assert_array_equal(back, want)
+        assert off == len(prelude) and back.dtype == np.int64
 
 
 def test_idle_share_counts_overlap_once():

@@ -20,6 +20,7 @@ from ans_tpu.ops import escape as ref_escape
 from ans_tpu.reference_model.model import load_prelude
 from ans_tpu.utils.zipf import zipf as ref_zipf
 from ans_tpu_torch import inputs, models
+from ans_tpu_torch.models import engine
 from ans_tpu_torch.models.ans import AnsFold, AnsInt
 from ans_tpu_torch.ops import decode, encode, place, tables
 
@@ -117,7 +118,8 @@ def test_card_inputs_are_the_reference_inputs():
 def test_registry():
     assert models.available() == sorted(
         ["ANS"] + [f"ANSfold-{f}" for f in range(1, 9)]
-        + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)])
+        + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
+        + ["vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS"])
     codec = models.get("ANSfold-3", device="cpu")
     assert codec.fidelity == 3 and codec.name == "ANSfold-3"
     assert models.get("ANSfold-3", lanes=64, device="cpu").lanes == 64
@@ -136,9 +138,11 @@ def test_registry_int_methods(name, h):
 
 
 @pytest.mark.parametrize("name", ["ANSmsb", "ANSrfold-2", "ANSsmsb-5",
-                                  "vbyte", "streamvbyteANS", "shuff",
+                                  "vbytefse", "streamvbytehuffzero", "shuff",
                                   "pseudo_adaptive", "no-such-method"])
 def test_unported_names_raise(name):
+    """(vbyte and streamvbyteANS stood here until the byte path was
+    ported; the host-codec composites took their place.)"""
     with pytest.raises(KeyError, match="ROADMAP"):
         models.get(name, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -270,8 +274,9 @@ def test_wide_fold_blob_identical_and_cross_decode(fidelity):
     ("ANSfold-8", _grouped_input)])
 def test_prepared_api_and_engine(monkeypatch, name, make):
     """The prepared encoder reproduces encode(), and the prepared decoder
-    takes the engine ans_tpu's own choice gives the same table (grouped
-    or search: the layout decides both)."""
+    takes the engine of the port's own rule; the engine ans_tpu's choice
+    gives the same table (grouped or search: the layout decides both) is
+    always eligible and decodes alike when forced."""
     x = make()
     blob = models.get(name, lanes=128, device="cpu").encode(x)
     pe = models.prepare_encoder(name, x, lanes=128, device="cpu")
@@ -283,7 +288,13 @@ def test_prepared_api_and_engine(monkeypatch, name, make):
     dt, _ = ref_models.get(name)._dec_table(blob)
     want = ref_engine.choose_decode_engine(dt, 128)
     assert want in ("grouped", "search")
-    assert pd.engine == want
+    table, _ = models.get(name, device="cpu")._dec_table(blob)
+    assert engine.eligible_engines(table)[0] == want
+    assert pd.engine == engine.choose_decode_engine(table, 128)
+    forced = models.prepare_decoder(name, blob, len(x), device="cpu",
+                                    engine=want)
+    assert forced.engine == want
+    np.testing.assert_array_equal(forced.to_host(forced()), x)
 
 
 def test_cpu_path_launches_no_kernel(datasets):
