@@ -7,7 +7,9 @@ For each frame it stages one blob once per eligible engine ("search" K3
 or "grouped" K5, the layout's own, and "direct" K4 where the per-slot
 table fits shared memory), checks that every engine decodes the input
 exactly, and times the prepared decode with CUDA events (min of 5 after
-a warm-up).  Frames:
+a warm-up); K3 and K4 are timed in the instance the wrapper picks (the
+stream staged in a shared-memory ring where it fits beside the tables)
+and, as "<engine>/global", forced onto global loads.  Frames:
 
   * the codecs' own, at full width (n = 2^25, S = 4096): AnsByte on the
     vbyte split stream of zipf20 (M <= 4096, <= 256 symbols), ANSfold-2
@@ -15,7 +17,9 @@ a warm-up).  Frames:
     grouped: the per-slot table does not fit, which the script reports);
   * synthetic frames over a (sigma, M) grid, Zipf(1) frequencies, values
     drawn from the frame's own distribution (n = 2^23), at S = 4096 and
-    S = 32, including frequency-grouped frames small enough for K4.
+    S = 32, including frequency-grouped frames small enough for K4 and
+    one (sigma 5500, M = 2^16) whose per-slot tables leave K4's ring no
+    room, so that K4 on global loads meets K3 with its ring.
 
 Prints one line per (frame, engine) with the card's name and power limit,
 then one JSON object; --out also writes it to FILE.  Fails without a CUDA
@@ -34,7 +38,7 @@ import torch
 
 from .inputs import bench_input, zipf20_input
 from .models import ans, bytes as byte_models, engine, framing
-from .ops import lane_codec, tables
+from .ops import decode, lane_codec, tables
 
 RUNS = 5
 DEVICE = "cuda"
@@ -81,6 +85,22 @@ def time_engines(label: str, table, payload, states, n: int, S: int,
             raise RuntimeError(f"{label}: engine {name} decodes wrongly")
         rec["ms"][name] = cuda_ms(pd)
         del pd
+    # K3 and K4 once more on global loads, where the wrapper took the ring
+    for name in rec["eligible"]:
+        if name == "grouped":
+            continue
+        before = dict(decode.instance_launches[f"decode_{name}"])
+        pd = engine.PreparedDecoder(payload, states, table, n, S=S, T=T,
+                                    sec_len=sec_len, device=DEVICE,
+                                    engine=name, instance="global")
+        if not torch.equal(pd().reshape(-1)[:n], want):
+            raise RuntimeError(f"{label}: engine {name} on global loads "
+                               f"decodes wrongly")
+        rec["ms"][f"{name}/global"] = cuda_ms(pd)
+        after = decode.instance_launches[f"decode_{name}"]
+        rec.setdefault("instance", {})[name] = (
+            "ring" if after["ring"] > before["ring"] else "global")
+        del pd
     return rec
 
 
@@ -110,6 +130,9 @@ def synthetic_frame(sigma: int, log2m: int, n: int, S: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--lanes-per-thread", type=int, default=0,
+                    help="lanes a thread of K3 / K4 owns (default: S / 1024 "
+                         "on 1024 threads)")
     ap.add_argument("--quick", action="store_true",
                     help="n = 2^20 everywhere: a check, not a measurement")
     args = ap.parse_args(argv)
@@ -121,6 +144,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
+    decode.lanes_per_thread = args.lanes_per_thread
     full_n = 1 << (20 if args.quick else 25)
     syn_n = 1 << (20 if args.quick else 23)
     recs = []
@@ -154,14 +178,15 @@ def main(argv=None) -> int:
     del z20
 
     grid = [(16, 8), (16, 12), (256, 10), (256, 12), (256, 16), (1546, 15),
-            (2048, 12), (2048, 16), (8192, 14), (8192, 16),
+            (2048, 12), (2048, 16), (5500, 16), (8192, 14), (8192, 16),
             (9000, 14), (10000, 15), (12000, 14)]
     for sigma, log2m in grid:
         emit(synthetic_frame(sigma, log2m, syn_n, 4096))
     for sigma, log2m in ((256, 12), (1546, 15), (9000, 14)):
         emit(synthetic_frame(sigma, log2m, syn_n >> 3, 32))
 
-    result = {"card": smi, "runs": RUNS, "frames": recs}
+    result = {"card": smi, "runs": RUNS,
+              "lanes_per_thread": args.lanes_per_thread, "frames": recs}
     text = json.dumps(result)
     print(text)
     if args.out:

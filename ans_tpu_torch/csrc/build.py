@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the kernel sources, csrc/<name>.cu, each exporting the C function <name>
 KERNELS = ("encode_scan", "encode_scan_grouped", "place", "decode_search",
            "decode_direct", "decode_grouped", "bytesplit_encode",
-           "svb_decode", "vbyte_decode")
+           "svb_decode", "vbyte_decode", "op_probe")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # name -> nvcc/ptxas report of this process

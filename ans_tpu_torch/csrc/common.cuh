@@ -1,7 +1,8 @@
 // Shared pieces of the lane-engine kernels: the fmt-2 constants, the
 // encode step of K1 and K6, the block-wide exclusive scan that turns
 // per-thread byte-round counts into ranks in lane order, and the byte
-// reads of one lockstep decode step (K3 and K5).
+// reads of one lockstep decode step as K5 makes them (K3 and K4 take the
+// step of lockstep.cuh).
 #pragma once
 
 #include <cstdint>
@@ -103,7 +104,7 @@ __device__ __forceinline__ uint32_t encode_step(uint32_t& st, uint32_t f,
   return b0 | (b1 << 8) | (b2 << 16) | ((e0 + e1 + e2) << 24);
 }
 
-// The byte reads of one lockstep decode step (K3, K5), for the LPT lanes of
+// The byte reads of one lockstep decode step (K5), for the LPT lanes of
 // this thread.  rc[l] renorm bytes (round j < NR holds every lane's j-th
 // one) and ne[l] exception bytes (round NR + j) are known before any read,
 // so each round's block-wide exclusive scan gives a lane its rank, and its

@@ -6,49 +6,67 @@
 //
 // What it computes, per step t and lane: slot = state & (M-1); the slot's
 // table entry gives the owning symbol's frequency f, first slot lb and
-// output word; st0 = f * (state >> log2m) + slot - lb.  From there the
-// step is K3's (decode_search.cu): the renorm bytes (st0 < L >> 8j,
-// j < NR) and exception bytes (nb) a lane reads are known before any
-// read, each round's rank is an exclusive prefix over the lanes, the
-// bytes are merged high-first, and the value is high + the exception
-// bytes.  The slot order (value-cumulative or frequency-grouped) is in
-// the table, so one kernel serves both layouts.
+// output word; st0 = f * (state >> log2m) + slot - lb.  The renorm bytes
+// (st0 < L >> 8j, j < NR) and exception bytes (nb) a lane reads are known
+// before any read, each round's rank is an exclusive prefix over the
+// lanes, the bytes are merged high-first, and the value is high + the
+// exception bytes.  The slot order (value-cumulative or frequency-grouped)
+// is in the table, so one kernel serves both layouts.
 //
-// What bounds it on the card: the lockstep, as for K3: one stream decodes
-// inside one block on one SM, and each step is a chain of dependent
-// shared-memory loads, block scans behind two barriers and one round of
-// dependent global byte loads.  Latency sets the time, not bandwidth.
+// What bounds it on the card: the lockstep.  All S lanes share one byte
+// cursor, so the T steps of one stream run one after the other inside one
+// block on one SM.  One warp runs a step in about 0.4 us, the latency of
+// its chain: two dependent shared-memory loads (the lookup), one warp
+// scan, one barrier, a handful of warp reductions, one window load.  The
+// 32 warps of S = 4096 take 2.5 us a step (20.9 ms for n = 2^25 on
+// ANSfold-2; NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and python3 -m
+// ans_tpu_torch.probe): what they execute on the SM's integer pipe, and
+// the bank conflicts of their random 16-byte rows, set the time, not the
+// latency.  Neither the bytes moved nor the arithmetic come near the
+// card's rates; only a batch of streams, one per block, could.
 //
-// What the design does about it: the search's chain of `depth` dependent
-// probes becomes two dependent loads.  The table is two-level: a u16
-// symbol index per slot (2M bytes), then one 16-byte row [f, lb, high,
-// nb] per live symbol, both in shared memory (up to the 227 KB a block
-// may opt into; a frame that does not fit is not eligible and the
-// wrapper raises).  A full word per slot would take 8M bytes or more and
-// shut out M = 2^15; the TPU's freq<<16|offset and packed23 word
-// packings are Mosaic's and are not carried over.  Lanes stay in
-// registers, LPT = S/1024 per thread; every read is checked against the
-// stream length.
-#include "common.cuh"
+// What the design does about it (lockstep.cuh has the step): the table is
+// two-level, a u16 symbol index per slot (2M bytes), then one 16-byte row
+// [f, lb, high, nb] per live symbol, both in shared memory; the stream is
+// staged in a shared-memory ring by cp.async one step ahead of the cursor;
+// the rounds have static slots and share one packed scan; a step has one
+// barrier; the byte reads of a round are one window load per thread;
+// a thread stores its LPT = S/1024 outputs 16 bytes at a time.  A frame
+// whose tables leave no room for the ring takes the second instance: the
+// same step on global loads, with an L2 prefetch ahead of the cursor
+// (ring_bytes = 0; the wrapper chooses).  Every read is checked against
+// the stream length.
+#include "lockstep.cuh"
 
 namespace {
 
-template <int LPT>
+template <int LPT, int NES, bool RING>
 __global__ void __launch_bounds__(1024)
 decode_direct_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
                      const int32_t* __restrict__ states,
                      const int4* __restrict__ rows_g,
                      const uint16_t* __restrict__ slot_g, int sigma,
                      int log2m, int NR, int NE, int64_t n, int T, int S,
-                     int32_t* __restrict__ out, int32_t* __restrict__ err) {
+                     uint32_t ring_bytes, int32_t* __restrict__ out,
+                     int32_t* __restrict__ err) {
+  constexpr int NW = lockstep::Rounds<NES>::NW;
   extern __shared__ int4 smem[];
-  __shared__ lane::ScanScratch scratch[2];
+  __shared__ uint32_t scratch[2][NW][32];
   const uint32_t M = 1u << log2m;
-  int4* rows = smem;                                           // sigma rows
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem);      // ring_bytes
+  int4* rows = smem + ring_bytes / 16;                       // sigma rows
   uint16_t* slot_sym = reinterpret_cast<uint16_t*>(rows + sigma);  // M
-  for (int i = threadIdx.x; i < sigma; i += blockDim.x) rows[i] = rows_g[i];
+  // a row's exception-byte count becomes the rounds it reads in
+  for (int i = threadIdx.x; i < sigma; i += blockDim.x) {
+    int4 e = rows_g[i];
+    e.w = static_cast<int>(lockstep::fields(min(max(e.w, 0), NE)));
+    rows[i] = e;
+  }
   for (uint32_t i = threadIdx.x; i < M; i += blockDim.x)
     slot_sym[i] = slot_g[i];
+  lockstep::Stream<RING> src;
+  src.begin(stream, static_cast<uint32_t>(stream_len),
+            static_cast<uint32_t>(S) * (NR + NE), ring, ring_bytes);
   __syncthreads();
 
   const int l0 = threadIdx.x * LPT;
@@ -58,85 +76,114 @@ decode_direct_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
   for (int l = 0; l < LPT; ++l)
     st[l] = owns ? static_cast<uint32_t>(states[l0 + l]) : lane::A_L;
 
-  int64_t cursor = 0;
+  uint32_t thr[3];  // renorm thresholds; 0 for a round the frame lacks
+#pragma unroll
+  for (int j = 0; j < 3; ++j) thr[j] = j < NR ? lane::A_L >> (8 * j) : 0u;
+
   bool bad = false;
   for (int t = 0; t < T; ++t) {
     const int64_t row = static_cast<int64_t>(t) * S + l0;
-    int rc[LPT], ne[LPT];
-    uint32_t high[LPT];
+    // lanes of this thread inside the n values (all of them but in the
+    // last step)
+    const int64_t left = n - row;
+    const int live = !owns ? 0 : left < LPT ? static_cast<int>(left) : LPT;
+    uint32_t need[NW][LPT], val[LPT];
 #pragma unroll
     for (int l = 0; l < LPT; ++l) {
-      const bool valid = owns && row + l < n;
+      const bool valid = l < live;
       const uint32_t slot = st[l] & (M - 1);
       const int4 e = rows[slot_sym[slot]];
       const uint32_t s0 = static_cast<uint32_t>(e.x) * (st[l] >> log2m) +
                           (slot - static_cast<uint32_t>(e.y));
       if (valid) st[l] = s0;
-      int r = 0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        r += valid && j < NR && st[l] < (lane::A_L >> (8 * j));
-      rc[l] = r;
-      ne[l] = valid ? e.w : 0;
-      high[l] = static_cast<uint32_t>(e.z);
+      need[0][l] = lockstep::renorm_need(valid ? s0 : ~0u, thr);
+      if constexpr (NES > 0)
+        need[1][l] = valid ? static_cast<uint32_t>(e.w) : 0u;
+      val[l] = static_cast<uint32_t>(e.z);
     }
-    uint32_t low[LPT];
-    cursor = lane::read_merge<LPT>(stream, stream_len, cursor, NR, NE, rc, ne,
-                                   st, low, bad, scratch[t & 1]);
+    uint32_t low[LPT] = {};
+    lockstep::read_step<LPT, NES, RING>(src, NR, NE, need, st, low, bad,
+                                        scratch[t & 1]);
 #pragma unroll
-    for (int l = 0; l < LPT; ++l)
-      if (owns) out[row + l] = static_cast<int32_t>(high[l] + low[l]);
+    for (int l = 0; l < LPT; ++l) val[l] += low[l];
+    if (owns) lockstep::store_lanes<LPT>(out + row, val);
   }
   if (bad) *err = 1;
 }
 
-template <int LPT>
-cudaError_t launch(const void* stream, int64_t stream_len, const void* states,
-                   const void* rows, const void* slot_sym, int sigma,
-                   int log2m, int NR, int NE, int64_t n, int T, int S,
-                   void* out, void* err, cudaStream_t cs) {
-  auto kernel = decode_direct_kernel<LPT>;
-  const size_t smem = 16 * size_t(sigma) + 2 * (size_t(1) << log2m);
+struct Args {
+  const void *stream, *states, *rows, *slot_sym;
+  int64_t stream_len, n;
+  int sigma, log2m, NR, NE, T, S;
+  uint32_t ring_bytes;
+  int threads;
+  void *out, *err;
+  cudaStream_t cs;
+};
+
+template <int LPT, int NES, bool RING>
+cudaError_t launch(const Args& a) {
+  auto kernel = decode_direct_kernel<LPT, NES, RING>;
+  const size_t smem = a.ring_bytes + 16 * size_t(a.sigma) +
+                      2 * (size_t(1) << a.log2m);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, lane::block_threads(S), smem, cs>>>(
-      static_cast<const uint8_t*>(stream), stream_len,
-      static_cast<const int32_t*>(states), static_cast<const int4*>(rows),
-      static_cast<const uint16_t*>(slot_sym), sigma, log2m, NR, NE, n, T, S,
-      static_cast<int32_t*>(out), static_cast<int32_t*>(err));
+  kernel<<<1, a.threads, smem, a.cs>>>(
+      static_cast<const uint8_t*>(a.stream), a.stream_len,
+      static_cast<const int32_t*>(a.states),
+      static_cast<const int4*>(a.rows),
+      static_cast<const uint16_t*>(a.slot_sym), a.sigma, a.log2m, a.NR, a.NE,
+      a.n, a.T, a.S, a.ring_bytes, static_cast<int32_t*>(a.out),
+      static_cast<int32_t*>(a.err));
   return cudaGetLastError();
+}
+
+template <int LPT>
+cudaError_t launch_lpt(const Args& a) {
+  if (a.NE > 0)
+    return a.ring_bytes ? launch<LPT, 3, true>(a) : launch<LPT, 3, false>(a);
+  return a.ring_bytes ? launch<LPT, 0, true>(a) : launch<LPT, 0, false>(a);
 }
 
 }  // namespace
 
-// stream: (stream_len,) u8; states: (S,) i32; rows: (sigma, 4) i32 rows
-// [freq, base, high, nb]; slot_sym: (2^log2m,) u16; out: (T, S) i32; err:
-// one i32, set to 1 when a read passes the end of the stream.  Returns the
-// launch's cudaError_t.
+// stream: (stream_len,) u8 at any address; states: (S,) i32; rows: (sigma,
+// 4) i32 rows [freq, base, high, nb]; slot_sym: (2^log2m,) u16; out: (T, S)
+// i32; err: one i32, set to 1 when a read passes the end of the stream.
+// ring_bytes: 0 for the instance on global loads, else the size of the
+// shared-memory ring, a power of two >= 2 * S * (NR + NE) + 16.
+// lanes_per_thread: 0 for S / 1024 lanes a thread on 1024 threads, else
+// lockstep::block_shape's.  stream_len < 2^31.  Returns the launch's
+// cudaError_t.
 extern "C" int decode_direct(const void* stream, int64_t stream_len,
                              const void* states, const void* rows,
                              const void* slot_sym, int sigma, int log2m,
                              int NR, int NE, int64_t n, int T, int S,
-                             void* out, void* err, void* cuda_stream) {
+                             int ring_bytes, int lanes_per_thread, void* out,
+                             void* err, void* cuda_stream) {
   if (T == 0) return 0;
-  const int lpt = S > 1024 ? S / 1024 : 1;
-  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
+      (ring_bytes & (ring_bytes - 1)) ||
+      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
+      stream_len < 0 || stream_len >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int lpt, threads;
+  if (!lockstep::block_shape(S, lanes_per_thread, lpt, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{stream, states, rows, slot_sym, stream_len, n, sigma, log2m,
+               NR, NE, T, S, static_cast<uint32_t>(ring_bytes), threads, out,
+               err, static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
-    case 1: e = launch<1>(stream, stream_len, states, rows, slot_sym, sigma,
-                          log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 2: e = launch<2>(stream, stream_len, states, rows, slot_sym, sigma,
-                          log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 4: e = launch<4>(stream, stream_len, states, rows, slot_sym, sigma,
-                          log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 8: e = launch<8>(stream, stream_len, states, rows, slot_sym, sigma,
-                          log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 16: e = launch<16>(stream, stream_len, states, rows, slot_sym, sigma,
-                            log2m, NR, NE, n, T, S, out, err, cs); break;
+    case 1: e = launch_lpt<1>(a); break;
+    case 2: e = launch_lpt<2>(a); break;
+    case 4: e = launch_lpt<4>(a); break;
+    case 8: e = launch_lpt<8>(a); break;
+    case 16: e = launch_lpt<16>(a); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

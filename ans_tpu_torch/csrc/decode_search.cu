@@ -16,24 +16,36 @@
 // are not carried over.
 //
 // What bounds it on the card: the lockstep.  All S lanes share one byte
-// cursor, so one stream decodes inside one block, on one SM; each step is
-// a chain of dependent shared-memory probes (depth of them), block-wide
-// scans with two barriers, and one round of dependent global byte loads.
-// Latency, not bandwidth or arithmetic, sets the time.
+// cursor, so the T steps of one stream run one after the other inside one
+// block on one SM.  One warp's chain (`depth` dependent shared-memory
+// probes, one warp scan, one barrier, a handful of warp reductions, one
+// window load) takes about 0.6 us; the 32 warps of S = 4096 take 5.7 us a
+// step at depth 11 (46.5 ms for n = 2^25 on ANSfold-2; NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py and python3 -m ans_tpu_torch.probe): the
+// bank conflicts of 11 random probes a lane, and what the warps execute
+// on the SM's integer pipe, set the time, not the latency.  Neither the
+// bytes moved nor the arithmetic come near the card's rates; only a batch
+// of streams, one per block, could.
 //
-// What the design does about it: the pivots and the per-symbol high/nb
-// tables live in shared memory; each thread owns LPT = S/1024 consecutive
-// lanes (at most 1024 threads), whose states stay in registers across all
-// T steps; all byte loads of a step are issued together after the scan
-// (lane::read_merge, shared with K5).
-// Every read is checked against the stream length: a corrupt blob sets
-// the error flag instead of reading out of bounds.  Decoding a batch of
-// streams, one per block, is what fills the card; that is later work.
-#include "common.cuh"
+// What the design does about it (lockstep.cuh has the step): the pivots
+// and the per-symbol high/nb tables live in shared memory; the search
+// keeps the dense id in place (probe m | bit, read the bracket after the
+// loop: five instructions a level) and the searches of a thread's
+// LPT = S/1024 lanes advance level by level together, so their probes
+// overlap instead of queueing lane after lane; the stream is staged
+// in a shared-memory ring by cp.async one step ahead of the cursor; the
+// rounds have static slots and share one packed scan; a step has one
+// barrier; the byte reads of a round are one window load per thread;
+// a thread stores its outputs 16 bytes at a time.  A frame whose tables
+// leave no room for the ring takes the second instance: the same step on
+// global loads, with an L2 prefetch ahead of the cursor (ring_bytes = 0;
+// the wrapper chooses).  Every read is checked against the stream length:
+// a corrupt blob sets the error flag instead of reading out of bounds.
+#include "lockstep.cuh"
 
 namespace {
 
-template <int LPT>
+template <int LPT, int NES, bool RING>
 __global__ void __launch_bounds__(1024)
 decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
                      const int32_t* __restrict__ states,
@@ -41,18 +53,27 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
                      const int32_t* __restrict__ high_g,
                      const int32_t* __restrict__ nb_g, int depth, int sigma,
                      int log2m, int NR, int NE, int64_t n, int T, int S,
-                     int32_t* __restrict__ out, int32_t* __restrict__ err) {
-  extern __shared__ int32_t smem[];
-  __shared__ lane::ScanScratch scratch[2];
+                     uint32_t ring_bytes, int32_t* __restrict__ out,
+                     int32_t* __restrict__ err) {
+  constexpr int NW = lockstep::Rounds<NES>::NW;
+  // The lane loops unroll fully up to 8 lanes a thread (lockstep.cuh).
+  constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
+  extern __shared__ int4 smem[];
+  __shared__ uint32_t scratch[2][NW][32];
   const int P = 1 << depth;
-  int32_t* bases = smem;            // P + 1 entries
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem);  // ring_bytes
+  int32_t* bases = reinterpret_cast<int32_t*>(ring + ring_bytes);  // P + 1
   int32_t* high = bases + P + 1;    // sigma
   int32_t* nbt = high + sigma;      // sigma
   for (int i = threadIdx.x; i <= P; i += blockDim.x) bases[i] = bases_g[i];
   for (int i = threadIdx.x; i < sigma; i += blockDim.x) {
     high[i] = high_g[i];
-    nbt[i] = nb_g[i];
+    // a symbol's exception-byte count becomes the rounds it reads in
+    nbt[i] = static_cast<int>(lockstep::fields(min(max(nb_g[i], 0), NE)));
   }
+  lockstep::Stream<RING> src;
+  src.begin(stream, static_cast<uint32_t>(stream_len),
+            static_cast<uint32_t>(S) * (NR + NE), ring, ring_bytes);
   __syncthreads();
 
   const int l0 = threadIdx.x * LPT;
@@ -63,96 +84,133 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
   for (int l = 0; l < LPT; ++l)
     st[l] = owns ? static_cast<uint32_t>(states[l0 + l]) : lane::A_L;
 
-  int64_t cursor = 0;
+  uint32_t thr[3];  // renorm thresholds; 0 for a round the frame lacks
+#pragma unroll
+  for (int j = 0; j < 3; ++j) thr[j] = j < NR ? lane::A_L >> (8 * j) : 0u;
+
   bool bad = false;
   for (int t = 0; t < T; ++t) {
     const int64_t row = static_cast<int64_t>(t) * S + l0;
-    int m[LPT], rc[LPT], ne[LPT];
-#pragma unroll
+    // lanes of this thread inside the n values (all of them but in the
+    // last step)
+    const int64_t left = n - row;
+    const int live = !owns ? 0 : left < LPT ? static_cast<int>(left) : LPT;
+    // The dense id m, bit by bit from the top: with the bits above k
+    // chosen, level k probes bases[m | 1 << k], the first base of the upper
+    // half of what is left (bases is the sorted array of cumulative bases,
+    // padded with M).  One level of every lane's search at a time: LPT
+    // independent probes.  The bracket is bases[m], bases[m + 1].
+    int m[LPT];
+    uint32_t slot[LPT];
+#pragma unroll LANE_UNROLL
     for (int l = 0; l < LPT; ++l) {
-      const bool valid = owns && row + l < n;
-      const uint32_t slot = st[l] & (M - 1);
-      int mm = 0;
-      uint32_t lb = 0, ub = M;
-      for (int k = depth - 1; k >= 0; --k) {
-        const uint32_t pv =
-            static_cast<uint32_t>(bases[(mm << (k + 1)) | (1 << k)]);
-        const bool take = slot >= pv;
-        mm = 2 * mm + take;
-        lb = take ? pv : lb;
-        ub = take ? ub : pv;
-      }
-      const uint32_t s0 = (ub - lb) * (st[l] >> log2m) + (slot - lb);
-      if (valid) st[l] = s0;
-      int r = 0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        r += valid && j < NR && st[l] < (lane::A_L >> (8 * j));
-      m[l] = mm;
-      rc[l] = r;
-      ne[l] = valid ? nbt[mm] : 0;
+      m[l] = 0;
+      slot[l] = st[l] & (M - 1);
     }
-    uint32_t low[LPT];
-    cursor = lane::read_merge<LPT>(stream, stream_len, cursor, NR, NE, rc, ne,
-                                   st, low, bad, scratch[t & 1]);
-#pragma unroll
-    for (int l = 0; l < LPT; ++l)
-      if (owns) out[row + l] = static_cast<int32_t>(high[m[l]] + low[l]);
+    for (int bit = P >> 1; bit > 0; bit >>= 1) {
+#pragma unroll LANE_UNROLL
+      for (int l = 0; l < LPT; ++l) {
+        const int probe = m[l] | bit;
+        m[l] = slot[l] >= static_cast<uint32_t>(bases[probe]) ? probe : m[l];
+      }
+    }
+    uint32_t need[NW][LPT], val[LPT];
+#pragma unroll LANE_UNROLL
+    for (int l = 0; l < LPT; ++l) {
+      const bool valid = l < live;
+      const uint32_t lb = static_cast<uint32_t>(bases[m[l]]);
+      const uint32_t ub = static_cast<uint32_t>(bases[m[l] + 1]);
+      const uint32_t s0 = (ub - lb) * (st[l] >> log2m) + (slot[l] - lb);
+      if (valid) st[l] = s0;
+      need[0][l] = lockstep::renorm_need(valid ? s0 : ~0u, thr);
+      if constexpr (NES > 0)
+        need[1][l] = valid ? static_cast<uint32_t>(nbt[m[l]]) : 0u;
+      val[l] = static_cast<uint32_t>(high[m[l]]);
+    }
+    uint32_t low[LPT] = {};
+    lockstep::read_step<LPT, NES, RING>(src, NR, NE, need, st, low, bad,
+                                        scratch[t & 1]);
+#pragma unroll LANE_UNROLL
+    for (int l = 0; l < LPT; ++l) val[l] += low[l];
+    if (owns) lockstep::store_lanes<LPT>(out + row, val);
   }
   if (bad) *err = 1;
 }
 
-template <int LPT>
-cudaError_t launch(const void* stream, int64_t stream_len, const void* states,
-                   const void* bases, const void* high, const void* nb,
-                   int depth, int sigma, int log2m, int NR, int NE,
-                   int64_t n, int T, int S, void* out, void* err,
-                   cudaStream_t cs) {
-  auto kernel = decode_search_kernel<LPT>;
+struct Args {
+  const void *stream, *states, *bases, *high, *nb;
+  int64_t stream_len, n;
+  int depth, sigma, log2m, NR, NE, T, S;
+  uint32_t ring_bytes;
+  int threads;
+  void *out, *err;
+  cudaStream_t cs;
+};
+
+template <int LPT, int NES, bool RING>
+cudaError_t launch(const Args& a) {
+  auto kernel = decode_search_kernel<LPT, NES, RING>;
   const size_t smem =
-      sizeof(int32_t) * ((size_t(1) << depth) + 1 + 2 * size_t(sigma));
+      a.ring_bytes +
+      sizeof(int32_t) * ((size_t(1) << a.depth) + 1 + 2 * size_t(a.sigma));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, lane::block_threads(S), smem, cs>>>(
-      static_cast<const uint8_t*>(stream), stream_len,
-      static_cast<const int32_t*>(states), static_cast<const int32_t*>(bases),
-      static_cast<const int32_t*>(high), static_cast<const int32_t*>(nb),
-      depth, sigma, log2m, NR, NE, n, T, S, static_cast<int32_t*>(out),
-      static_cast<int32_t*>(err));
+  kernel<<<1, a.threads, smem, a.cs>>>(
+      static_cast<const uint8_t*>(a.stream), a.stream_len,
+      static_cast<const int32_t*>(a.states),
+      static_cast<const int32_t*>(a.bases),
+      static_cast<const int32_t*>(a.high), static_cast<const int32_t*>(a.nb),
+      a.depth, a.sigma, a.log2m, a.NR, a.NE, a.n, a.T, a.S, a.ring_bytes,
+      static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
   return cudaGetLastError();
+}
+
+template <int LPT>
+cudaError_t launch_lpt(const Args& a) {
+  if (a.NE > 0)
+    return a.ring_bytes ? launch<LPT, 3, true>(a) : launch<LPT, 3, false>(a);
+  return a.ring_bytes ? launch<LPT, 0, true>(a) : launch<LPT, 0, false>(a);
 }
 
 }  // namespace
 
-// stream: (stream_len,) u8; states: (S,) i32; bases: (2^depth + 1,) i32;
-// high/nb: (sigma,) i32; out: (T, S) i32; err: one i32, set to 1 when a
-// read passes the end of the stream.  Returns the launch's cudaError_t.
+// stream: (stream_len,) u8 at any address; states: (S,) i32; bases:
+// (2^depth + 1,) i32; high/nb: (sigma,) i32; out: (T, S) i32; err: one i32,
+// set to 1 when a read passes the end of the stream.  ring_bytes: 0 for
+// the instance on global loads, else the size of the shared-memory ring, a
+// power of two >= 2 * S * (NR + NE) + 16.  lanes_per_thread: 0 for
+// S / 1024 lanes a thread on 1024 threads, else lockstep::block_shape's.
+// stream_len < 2^31.  Returns the launch's cudaError_t.
 extern "C" int decode_search(const void* stream, int64_t stream_len,
                              const void* states, const void* bases,
                              const void* high, const void* nb, int depth,
                              int sigma, int log2m, int NR, int NE, int64_t n,
-                             int T, int S, void* out, void* err,
+                             int T, int S, int ring_bytes,
+                             int lanes_per_thread, void* out, void* err,
                              void* cuda_stream) {
   if (T == 0) return 0;
-  const int lpt = S > 1024 ? S / 1024 : 1;
-  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
+      (ring_bytes & (ring_bytes - 1)) ||
+      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
+      stream_len < 0 || stream_len >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int lpt, threads;
+  if (!lockstep::block_shape(S, lanes_per_thread, lpt, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{stream, states, bases, high, nb, stream_len, n, depth, sigma,
+               log2m, NR, NE, T, S, static_cast<uint32_t>(ring_bytes),
+               threads, out, err, static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
-    case 1: e = launch<1>(stream, stream_len, states, bases, high, nb, depth,
-                          sigma, log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 2: e = launch<2>(stream, stream_len, states, bases, high, nb, depth,
-                          sigma, log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 4: e = launch<4>(stream, stream_len, states, bases, high, nb, depth,
-                          sigma, log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 8: e = launch<8>(stream, stream_len, states, bases, high, nb, depth,
-                          sigma, log2m, NR, NE, n, T, S, out, err, cs); break;
-    case 16: e = launch<16>(stream, stream_len, states, bases, high, nb,
-                            depth, sigma, log2m, NR, NE, n, T, S, out, err,
-                            cs); break;
+    case 1: e = launch_lpt<1>(a); break;
+    case 2: e = launch_lpt<2>(a); break;
+    case 4: e = launch_lpt<4>(a); break;
+    case 8: e = launch_lpt<8>(a); break;
+    case 16: e = launch_lpt<16>(a); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -17,6 +17,8 @@ the wire; `choose_decode_engine` picks it from the table.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,12 +45,14 @@ def choose_decode_engine(table, S: int) -> str:
     table: eligibility is capacity (tables.direct_fits), and no crossover
     was found inside it.  On an NVIDIA H100 80GB HBM3 at 700 W
     (ans_tpu_torch/bench_crossover.py; PERF.md has the table) K4 took
-    0.45-0.88 of K3's time on every value-order frame that fits (sigma 16
-    to 8192, M 2^8 to 2^16; 0.71 on ANSfold-2's main path, 0.73 on
-    AnsByte) and 0.83-0.92 of K5's on the grouped frames that fit, at
-    S = 4096 and at S = 32: two dependent shared-memory loads against the
-    search's chain of probes, or the grouped engine's search plus
-    divide."""
+    0.20-0.81 of K3's time on every value-order frame that fits (sigma 16
+    to 8192, M 2^8 to 2^16; 0.44 on ANSfold-2's main path, 0.49 on
+    AnsByte) and 0.29-0.38 of K5's on the grouped frames that fit, at
+    S = 4096, and 0.27-0.63 at S = 32: two dependent shared-memory loads
+    against the search's chain of probes, or the grouped engine's search
+    plus divide.  A frame whose tables leave K4 no room for the stream's
+    ring (ops.decode.choose_instance) still decodes faster on K4's
+    global-load instance than on K3 with its ring."""
     del S  # the order of the engines held at both lane counts measured
     engines = eligible_engines(table)
     return "direct" if "direct" in engines else engines[0]
@@ -58,11 +62,12 @@ class PreparedDecoder:
     """All decode inputs staged on `device`; call to run the decoder.
     `engine` is "search" (K3), "grouped" (K5) or "direct" (K4); None
     leaves the choice to choose_decode_engine.  An engine the table is
-    not eligible for raises ValueError."""
+    not eligible for raises ValueError.  `instance` ("ring" or "global")
+    forces the instance of K3 or K4 that ops.decode would choose."""
 
     def __init__(self, payload: np.ndarray, states: np.ndarray, table,
                  n: int, *, S: int, T: int, sec_len, device,
-                 engine: str | None = None):
+                 engine: str | None = None, instance: str | None = None):
         if int(np.sum(sec_len)) != len(payload):
             raise ValueError("corrupt lane header: section lengths do not "
                              "sum to the stream length")
@@ -81,6 +86,10 @@ class PreparedDecoder:
             table = tables.materialize_slots(table)
         self._kernel = {"search": decode_search, "grouped": decode_grouped,
                         "direct": decode_direct}[engine]
+        if instance is not None:
+            if engine == "grouped":
+                raise ValueError("the grouped engine has one instance")
+            self._kernel = functools.partial(self._kernel, instance=instance)
         self.table = tables.to_device(table, self.device)
         self.stream = torch.from_numpy(
             np.array(payload, dtype=np.uint8)).to(self.device)

@@ -4,7 +4,13 @@ K5, the grouped lockstep decode (csrc/decode_grouped.cu), and their
 wrappers.
 
 Replace ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search`,
-`stage` + `_call` and `stage_grouped` + `_call_grouped`."""
+`stage` + `_call` and `stage_grouped` + `_call_grouped`.
+
+K3 and K4 have two instances each (csrc/lockstep.cuh): "ring" stages the
+stream in a shared-memory ring ahead of the cursor, "global" reads it
+from device memory.  The wrapper takes "ring" wherever the ring fits the
+block's shared memory beside the tables (`choose_instance`);
+`instance_launches` counts each."""
 
 from __future__ import annotations
 
@@ -23,32 +29,83 @@ launches = 0
 direct_launches = 0
 grouped_launches = 0
 
+# launches of K3 and K4 by instance (each also counts in `launches` /
+# `direct_launches`)
+instance_launches = {"decode_search": {"ring": 0, "global": 0},
+                     "decode_direct": {"ring": 0, "global": 0}}
+
 # the kernels keep LPT = S/1024 lane states per thread in registers and
 # are compiled for LPT <= 16
 MAX_LANES = 1 << 14
 
+INSTANCES = ("ring", "global")
+
+# lanes a decode thread of K3 / K4 owns: 0 leaves S / 1024 on 1024 threads;
+# 2..16 asks for fewer threads with more lanes each where S allows
+# (csrc/lockstep.cuh block_shape).  A tuning knob for measurements.
+lanes_per_thread = 0
+
+# K3 and K4 keep 32-bit stream offsets
+MAX_STREAM_BYTES = (1 << 31) - 1
+
+
+def ring_bytes(S: int, rounds: int) -> int:
+    """Size of the shared-memory ring that stages the stream for S lanes
+    reading in `rounds` byte rounds a step: a step consumes at most
+    S * rounds bytes and the ring is refilled one step ahead, so it holds
+    two steps and one 16-byte granule, rounded up to a power of two."""
+    need = max(2 * S * rounds + 16, 1024)
+    return 1 << (need - 1).bit_length()
+
+
+def choose_instance(name: str, table_bytes: int, S: int, rounds: int,
+                    instance: str | None = None) -> tuple[str, int]:
+    """(instance, ring bytes) for a kernel whose tables take table_bytes
+    of shared memory: "ring" when the ring fits beside them, else
+    "global" (ring bytes 0).  Forcing "ring" where it does not fit
+    raises ValueError."""
+    if instance not in (None, *INSTANCES):
+        raise ValueError(f"{name}: unknown instance {instance!r}")
+    ring = ring_bytes(S, rounds)
+    fits = table_bytes + ring <= DIRECT_TABLE_BYTES
+    if instance == "ring" and not fits:
+        raise ValueError(
+            f"{name}: a ring of {ring} bytes does not fit shared memory "
+            f"beside {table_bytes} bytes of tables "
+            f"({DIRECT_TABLE_BYTES} in all)")
+    if instance == "global" or not fits:
+        return "global", 0
+    return "ring", ring
+
+
 _ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
              ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int,
-             ct.c_void_p, ct.c_void_p, ct.c_void_p]
+             ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int, ct.c_int,
+             ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_search(stream: torch.Tensor, states: torch.Tensor,
-                  table: SearchDevice, n: int, T: int) -> torch.Tensor:
+                  table: SearchDevice, n: int, T: int,
+                  instance: str | None = None) -> torch.Tensor:
     """Decode T lockstep steps of S = len(states) lanes.
 
     stream: (L,) u8 concatenated payload; states: (S,) i32 final encoder
     states.  Returns (T, S) i32 bit patterns of the u32 values (only the
     first n positions are meaningful).  Raises ValueError when a read
-    would pass the end of the stream.  CPU tensors run the plain version
-    (lane_codec.decode_search_plain); CUDA tensors launch the kernel."""
+    would pass the end of the stream.  The stream may start at any byte
+    address.  CPU tensors run the plain version
+    (lane_codec.decode_search_plain); CUDA tensors launch the kernel,
+    in the instance choose_instance picks (`instance` forces one)."""
     global launches
     _check_inputs("decode_search", stream, states)
     tensors = (stream, states, table.bases, table.high, table.nb)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_search_plain(stream, states, table, n, T)
     dev = build.require_cuda("decode_search", *tensors)
-    S = _lanes("decode_search", states)
+    S = _lanes("decode_search", states, stream)
+    which, ring = choose_instance(
+        "decode_search", 4 * (table.bases.numel() + 2 * table.sigma), S,
+        table.NR + table.NE, instance)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_search", _ARGTYPES)
@@ -56,25 +113,29 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
         build.ptr(stream), stream.numel(), build.ptr(states),
         build.ptr(table.bases), build.ptr(table.high), build.ptr(table.nb),
         table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
-        build.ptr(out), build.ptr(err), build.current_stream(dev)))
+        ring, lanes_per_thread, build.ptr(out), build.ptr(err),
+        build.current_stream(dev)))
     launches += 1
+    instance_launches["decode_search"][which] += 1
     _raise_on(err)
     return out
 
 
 _DIRECT_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                    ct.c_int64, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
-                    ct.c_void_p]
+                    ct.c_int64, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_direct(stream: torch.Tensor, states: torch.Tensor,
-                  table: DirectDevice, n: int, T: int) -> torch.Tensor:
+                  table: DirectDevice, n: int, T: int,
+                  instance: str | None = None) -> torch.Tensor:
     """Decode T lockstep steps through the per-slot table of the frame
     (either slot layout); arguments, result and errors as decode_search.
     Raises ValueError when the tables do not fit the shared memory of one
     block.  CPU tensors run the plain version
-    (lane_codec.decode_direct_plain); CUDA tensors launch the kernel."""
+    (lane_codec.decode_direct_plain); CUDA tensors launch the kernel,
+    in the instance choose_instance picks (`instance` forces one)."""
     global direct_launches
     _check_inputs("decode_direct", stream, states)
     smem = 2 * table.frame_size + 16 * table.sigma
@@ -86,16 +147,19 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors):
         return decode_direct_plain(stream, states, table, n, T)
     dev = build.require_cuda("decode_direct", *tensors)
-    S = _lanes("decode_direct", states)
+    S = _lanes("decode_direct", states, stream)
+    which, ring = choose_instance("decode_direct", smem, S,
+                                  table.NR + table.NE, instance)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_direct", _DIRECT_ARGTYPES)
     build.check("decode_direct", fn(
         build.ptr(stream), stream.numel(), build.ptr(states),
         build.ptr(table.rows), build.ptr(table.slot_sym), table.sigma,
-        table.log2m, table.NR, table.NE, n, T, S, build.ptr(out),
-        build.ptr(err), build.current_stream(dev)))
+        table.log2m, table.NR, table.NE, n, T, S, ring, lanes_per_thread,
+        build.ptr(out), build.ptr(err), build.current_stream(dev)))
     direct_launches += 1
+    instance_launches["decode_direct"][which] += 1
     _raise_on(err)
     return out
 
@@ -144,7 +208,12 @@ def _check_inputs(name: str, stream: torch.Tensor,
         raise ValueError(f"{name}: states must be a 1-d int32 tensor")
 
 
-def _lanes(name: str, states: torch.Tensor) -> int:
+def _lanes(name: str, states: torch.Tensor,
+           stream: torch.Tensor | None = None) -> int:
+    if stream is not None and stream.numel() > MAX_STREAM_BYTES:
+        raise NotImplementedError(
+            f"{name}: a stream of {stream.numel()} bytes; the kernel takes "
+            f"at most {MAX_STREAM_BYTES}")
     S = states.numel()
     if S > MAX_LANES:
         raise NotImplementedError(

@@ -13,7 +13,7 @@ the pivot search) and on a 2^16-symbol input the escape declines
 data.  The inputs are ans_tpu_torch/inputs.py's:
 
   0. device: the card's name and power limit;
-  1. build: nvcc compiles the nine kernels from ans_tpu_torch/csrc, all at
+  1. build: nvcc compiles the ten kernels from ans_tpu_torch/csrc, all at
      once;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
      version on the same inputs (n = 2^20, S in {32, 4096}: K1-K4 on
@@ -21,10 +21,19 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      -> rank map, high/nb table), on ANS without the escape (ranks, value
      table), on a frame whose ranks are its values, and with K4 on a
      grouped frame small enough for its per-slot table; K7-K9 on values of
-     every byte length; then K1-K4 on the main path's arrays); all integer,
-     so the tolerance is zero.  Kernel and plain times at the full-width
-     shapes (CUDA events, min of 5 for the kernels, one run after a warm-up
-     for the plain versions);
+     every byte length; then K1-K4 on the main path's arrays); K3 and K4
+     run in the instance their wrapper picks (the stream staged in a
+     shared-memory ring) and once more forced onto global loads, and a
+     frame whose tables leave the ring no room takes that instance by
+     itself; all integer, so the tolerance is zero.  Kernel and plain times
+     at the full-width shapes (CUDA events, min of 5 for the kernels; a
+     plain version of the lane kernels runs once, for the comparison, and
+     that run is its time);
+  2b. the step probe (K10): every chain of csrc/op_probe.cu at 32 and 1024
+     threads against its plain chain at a small depth (exact), then the
+     probe's own entry point, `python3 -m ans_tpu_torch.probe`, at a
+     reduced depth, which prints each chain's ns/op and clocks/op and must
+     have launched the kernel;
   3. golden fixtures (tests/fixtures/lane, written by ans_tpu): encode
      equals the blob byte for byte, decode equals the input;
   4. the main path at full width: the input's sha256 and the blob's length
@@ -47,8 +56,8 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
   Phases 5-8 then hold their kernels against the plain versions at their
   own shapes and time both.
 
-Prints the kernels' JSON line (each kernel's launches on its path, its
-time, its plain version's, and its bound: the larger of the bytes it must
+Prints the kernels' JSON line (each kernel's launches on its path, the
+probe's on its own run; its time, its plain version's, and its bound: the larger of the bytes it must
 move at 3.35 TB/s and its integer operations at 67 T/s, the published
 rates of the H100 SXM), then as its last line {"ok": true, "device":
 {...}}.  Any failure exits non-zero and prints no result; so does a
@@ -104,11 +113,15 @@ KERNELS = {
     "vbyte_decode": ("ans_tpu_torch/csrc/vbyte_decode.cu",
                      "ans_tpu/ops/pallas_bytesplit.py:480",
                      "bytesplit.vbyte_decode_launches"),
+    "op_probe": ("ans_tpu_torch/csrc/op_probe.cu", "tools/mosaic_probe.py:44",
+                 "probe.launches"),
 }
+PROBE_COMPARE_ITERS, PROBE_RUN_ITERS = 2, 256
 
 # integer operations per item, counted from each kernel's source: per
 # (lane, step) for the lane kernels (`depth` is the search's), per element
 # for K7 and K8, per stream byte for K9
+# (the probe has no entry: it has no work bound)
 OPS = {"encode_scan": lambda d: 30, "encode_scan_grouped": lambda d: 4 * d + 35,
        "place": lambda d: 30, "decode_search": lambda d: 4 * d + 30,
        "decode_direct": lambda d: 30, "decode_grouped": lambda d: 4 * d + 45,
@@ -270,8 +283,8 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
     """The scan (K1 or K6), K2, the layout's decode (K3 or K5) and, where
     the per-slot table fits, K4 of st against their plain versions;
     returns per-kernel max_abs_err (and ms / plain_ms and the bound when
-    timed: CUDA events, min of RUNS for a kernel and of PLAIN_RUNS for a
-    plain version).  plain_search=False holds K3 against K4's output
+    timed: CUDA events, min of RUNS for a kernel; a plain version runs
+    once, for the comparison, and that run is timed).  plain_search=False holds K3 against K4's output
     instead of its own plain version (the byte path's long streams)."""
     from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
     where = f"at S={st.S}"
@@ -286,39 +299,55 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
                 lane_codec.encode_scan_plain)
         dec = ("decode_search", decode.decode_search,
                lane_codec.decode_search_plain)
-    res = {}
+    res, plain_ms = {}, {}
+
+    def plain(name, fn, *args):
+        """A plain version's result; its one run is also its timing."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+        return out
+
     sargs = (st.mapped, st.n, st.enc)
     packed, states = scan[1](*sargs)
     res[scan[0]] = {"max_abs_err": compare(scan[0], where, (packed, states),
-                                           scan[2](*sargs))}
+                                           plain(scan[0], scan[2], *sargs))}
 
     round_base, total = lane_codec.encode_totals(packed, st.nb, st.n)
     total = int(total)
     args = (packed, st.nb, st.excw, st.n, round_base, total)
     stream = place.place(*args)
     res["place"] = {"max_abs_err": compare(
-        "place", where, stream, lane_codec.place_plain(*args))}
+        "place", where, stream,
+        plain("place", lane_codec.place_plain, *args))}
 
-    pairs = {scan[0]: (lambda: scan[1](*sargs), lambda: scan[2](*sargs)),
-             "place": (lambda: place.place(*args),
-                       lambda: lane_codec.place_plain(*args))}
+    kernels = {scan[0]: lambda: scan[1](*sargs),
+               "place": lambda: place.place(*args)}
     out = None
     if st.direct is not None:
         xargs = (stream, states, st.direct, st.n, st.T)
         out = decode.decode_direct(*xargs)
         res["decode_direct"] = {"max_abs_err": compare(
             "decode_direct", where, out,
-            lane_codec.decode_direct_plain(*xargs))}
-        pairs["decode_direct"] = (
-            lambda: decode.decode_direct(*xargs),
-            lambda: lane_codec.decode_direct_plain(*xargs))
+            plain("decode_direct", lane_codec.decode_direct_plain, *xargs))}
+        if not timed:
+            compare("decode_direct on global loads", where,
+                    decode.decode_direct(*xargs, instance="global"), out)
+        kernels["decode_direct"] = lambda: decode.decode_direct(*xargs)
     dargs = (stream, states, st.dec, st.n, st.T)
     use_plain = plain_search or out is None
+    got = dec[1](*dargs)
     res[dec[0]] = {"max_abs_err": compare(
-        dec[0], where, dec[1](*dargs),
-        dec[2](*dargs) if use_plain else out)}
-    pairs[dec[0]] = (lambda: dec[1](*dargs),
-                     (lambda: dec[2](*dargs)) if use_plain else None)
+        dec[0], where, got,
+        plain(dec[0], dec[2], *dargs) if use_plain else out)}
+    if not timed and not grouped:
+        compare("decode_search on global loads", where,
+                decode.decode_search(*dargs, instance="global"), got)
+    kernels[dec[0]] = lambda: dec[1](*dargs)
 
     if timed:
         items = st.T * st.S
@@ -330,10 +359,9 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
             if tab is not None:
                 moved[name] = 4 * items + nbytes(stream, states, *[
                     t for t in vars(tab).values() if torch.is_tensor(t)])
-        for name, (kern, plain) in pairs.items():
+        for name, kern in kernels.items():
             res[name]["ms"] = cuda_ms(kern)
-            res[name]["plain_ms"] = (cuda_ms(plain, PLAIN_RUNS, warm=False)
-                                     if plain else None)
+            res[name]["plain_ms"] = plain_ms.get(name)
             depth = (st.enc if name == scan[0] else st.dec)
             res[name].update(bound(name, moved[name], items,
                                    getattr(depth, "depth", 0)))
@@ -382,6 +410,83 @@ def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
     return res
 
 
+def full_block_frame() -> np.ndarray:
+    """5500 symbols over M = 2^16: 219 KB of per-slot tables, which leave
+    the stream's ring no room in K4's shared memory."""
+    rng = np.random.default_rng(12)
+    nf = 1 + rng.multinomial((1 << 16) - 5500, np.full(5500, 1 / 5500))
+    return nf.astype(np.uint64)
+
+
+def check_full_block() -> dict:
+    """K1, K2 and K4 on a frame that fills the block: the wrapper must
+    take K4's instance on global loads by itself."""
+    from ans_tpu_torch.models.ans import _stage
+    from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
+    nf, n, S = full_block_frame(), 1 << 20, FULL_LANES
+    x = np.random.default_rng(13).choice(len(nf), size=n, p=nf / nf.sum())
+    xt = torch.from_numpy(x.astype(np.int32)).to(DEVICE)
+    zero = torch.zeros_like(xt)
+    enc, (mapped, nb, excw) = _stage(xt, zero, zero, n, nf, True, S)
+    T = mapped.shape[0]
+    packed, states = encode.encode_scan(mapped, n, enc)
+    round_base, total = lane_codec.encode_totals(packed, nb, n)
+    stream = place.place(packed, nb, excw, n, round_base, int(total))
+    table = tables.build_dec_table(nf)
+    direct = tables.to_device(tables.materialize_slots(table), DEVICE)
+    before = decode.instance_launches["decode_direct"]["global"]
+    got = decode.decode_direct(stream, states, direct, n, T)
+    require(decode.instance_launches["decode_direct"]["global"] == before + 1,
+            "a frame that fills the block did not take K4's instance on "
+            "global loads")
+    err = compare("decode_direct", "on a frame that fills the block", got,
+                  lane_codec.decode_direct_plain(stream, states, direct, n,
+                                                 T))
+    require(torch.equal(got.reshape(-1)[:n], xt),
+            "decode_direct on a frame that fills the block is not exact")
+    return {"decode_direct": {"max_abs_err": err}}
+
+
+def check_probe(card: str) -> dict:
+    """K10: every chain at 32 and 1024 threads against its plain chain at
+    PROBE_COMPARE_ITERS (exact; the sum of the 1024-thread kernel and plain
+    times is the row's ms / plain_ms), then the probe's own entry point at
+    PROBE_RUN_ITERS with the launch count set to 0 before it."""
+    from ans_tpu_torch import probe
+    inp = probe.make_inputs(DEVICE, 1 << 20)
+    err, ms, plain_ms = 0, 0.0, 0.0
+    for name in probe.CHAINS:
+        for threads in (32, 1024):
+            x = probe.make_x(name, threads, DEVICE)
+            got, clocks = probe.run_kernel(name, x, PROBE_COMPARE_ITERS, inp)
+            require(clocks > 0, f"probe chain {name} took no clocks")
+            err = max(err, compare(
+                f"op_probe chain {name}", f"at {threads} threads", got,
+                probe.run_plain(name, x, PROBE_COMPARE_ITERS, inp)))
+        ms += cuda_ms(lambda: probe.run_kernel(name, x, PROBE_COMPARE_ITERS,
+                                               inp), runs=3)
+        plain_ms += cuda_ms(lambda: probe.run_plain(
+            name, x, PROBE_COMPARE_ITERS, inp), PLAIN_RUNS, warm=False)
+    print(f"kernels == plain, {len(probe.CHAINS)} probe chains at 32 and "
+          f"1024 threads, {PROBE_COMPARE_ITERS * probe.UNROLL} ops deep: "
+          f"op_probe max_abs_err {err}")
+    del inp
+    probe.launches = 0
+    require(probe.main(["--iters", str(PROBE_RUN_ITERS)]) == 0,
+            "python3 -m ans_tpu_torch.probe failed")
+    launches = probe.launches
+    require(launches >= 2 * len(probe.CHAINS),
+            f"the probe's run launched its kernel {launches} times")
+    print(f"{card} op_probe: all chains at 1024 threads, "
+          f"{PROBE_COMPARE_ITERS * probe.UNROLL} ops deep: kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms; no bound (a probe's work is the "
+          f"latency it measures) and no library call; {launches} launches "
+          f"by its own run")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": None, "bound_by": "operations", "launches": launches}
+
+
 def merge_errs(total: dict, res: dict) -> None:
     for name, r in res.items():
         total[name] = max(total.get(name, 0), r["max_abs_err"])
@@ -428,9 +533,10 @@ def find_record(path: Path, method: str, x: np.ndarray) -> dict:
 
 
 def counter_modules() -> dict:
+    from ans_tpu_torch import probe
     from ans_tpu_torch.ops import bytesplit, decode, encode, place
     return {"encode": encode, "place": place, "decode": decode,
-            "bytesplit": bytesplit}
+            "bytesplit": bytesplit, "probe": probe}
 
 
 def reset_launches() -> None:
@@ -640,6 +746,21 @@ def main() -> int:
     print("kernels == plain, values of every byte length at n=2^20: "
           + ", ".join(f"{k} max_abs_err {v['max_abs_err']}"
                       for k, v in res.items()))
+    res = check_full_block()
+    merge_errs(errs, res)
+    print("kernels == plain, a frame that fills the block (sigma 5500, "
+          "M = 2^16) at n=2^20, S=4096: decode_direct on global loads "
+          f"max_abs_err {res['decode_direct']['max_abs_err']}")
+    from ans_tpu_torch.ops import decode
+    for kernel, counts in decode.instance_launches.items():
+        require(min(counts.values()) > 0,
+                f"{kernel} did not run in both instances: {counts}")
+    print(f"instances of K3 / K4 launched so far: {decode.instance_launches}")
+
+    # 2b. the step probe
+    pres = check_probe(card)
+    errs["op_probe"] = pres["max_abs_err"]
+
     full = bench_input(FULL_N, FULL_SEED)
     rec = find_record(LANE_FIXTURES / "fullwidth.json", "ANSfold-2", full)
     kres = check_kernels(Stage(AnsFold(2, device=DEVICE), full, FULL_LANES),
@@ -711,9 +832,10 @@ def main() -> int:
     launches.update({name: byte_run["launches"][name] for name in
                      ("decode_direct", "bytesplit_encode", "vbyte_decode")})
     launches["svb_decode"] = svb_run["launches"]["svb_decode"]
+    launches["op_probe"] = pres["launches"]
     # each kernel at its own path's shapes: K1-K3 the main path's, K4
     # AnsByte's, K5/K6 the grouped path's, K7-K9 the byte path's
-    timed = {**gres, **sres, **bres, **{k: kres[k] for k in (
+    timed = {**gres, **sres, **bres, "op_probe": pres, **{k: kres[k] for k in (
         "encode_scan", "place", "decode_search")}}
     print(f"{card} decode_direct at the main path's shapes: "
           f"{kres['decode_direct']['ms']:.3f} ms against decode_search "
@@ -725,7 +847,11 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
          "bound_ms": timed[name]["bound_ms"],
-         "bound_by": timed[name]["bound_by"], "library_ms": None}
+         "bound_by": timed[name]["bound_by"], "library_ms": None,
+         **({"note": "a probe: its work is the latency it measures, so it "
+                     "has no work bound; no PyTorch call computes a "
+                     "dependency chain of one primitive"}
+            if name == "op_probe" else {})}
         for name, (src, tpu, _) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,8 +11,12 @@ three renorm rounds, three exception bytes, corrupt streams, and for the
 grouped kernels K5/K6 one-group frames, ~2^12 groups, per-rank tables too
 large for shared memory and out-of-range ranks; for the direct kernel K4
 tables past 48 KB, both slot orders and frames that do not fit; for the
-byte splitters K7-K9 every element length, ragged sizes and corrupt
-streams.
+two instances of K3 and K4 (the stream staged in a shared-memory ring, or
+read from device memory) every lane count, streams shorter than one
+16-byte granule, payloads at odd addresses, truncated streams and a frame
+that leaves the ring no room; for the byte splitters K7-K9 every element
+length, ragged sizes and corrupt streams; for the step probe every chain
+against its plain version.
 """
 
 import json
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from ans_tpu_torch import probe
 from ans_tpu_torch.models import engine
 from ans_tpu_torch.models.ans import AnsFold, AnsInt, _stage, _stage_ts
 from ans_tpu_torch.ops import (bytesplit, decode, encode, grouped, lane_codec,
@@ -415,6 +420,191 @@ def test_direct_refuses_frames_that_do_not_fit(cuda):
             torch.zeros(8, dtype=torch.uint8, device=cuda),
             torch.full((32,), 1 << 23, dtype=torch.int32, device=cuda),
             _direct(st, cuda), 64, 2)
+
+
+# --------------------------------------------------------------------------
+# the two instances of the lockstep step of K3 and K4 (csrc/lockstep.cuh)
+# --------------------------------------------------------------------------
+
+def _both_decoders(x, S, cuda):
+    """(stream, states, T, [(name, wrapper, plain, table), ...]) for K3
+    and K4 on ANSfold-2 of x."""
+    n = len(x)
+    mapped, k, low, enc, dec = _fold_tables(x, 2, cuda)
+    stream, states, T = _encode_all(mapped, k, low, enc, n, S)
+    dd = _direct(_fold_host_table(x, 2), cuda)
+    return stream, states, T, [
+        ("decode_search", decode.decode_search,
+         lane_codec.decode_search_plain, dec),
+        ("decode_direct", decode.decode_direct,
+         lane_codec.decode_direct_plain, dd)]
+
+
+@pytest.mark.parametrize("S", [1, 32, 4096, 16384])
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_lockstep_instances_match_plain(cuda, S, instance):
+    """K3 and K4 through each instance, with exception rounds (wide
+    values: NE = 3), against their plain versions."""
+    n = 20 * S + 7 if S > 1 else 500
+    x = _values(n, S + 2, wide=True)
+    stream, states, T, decoders = _both_decoders(x, S, cuda)
+    if instance == "ring" and S == 16384:
+        # five rounds of 16384 lanes: two steps (160 KB) do not fit a ring
+        for name, fn, plain, table in decoders:
+            assert table.NE == 3
+            with pytest.raises(ValueError, match="does not fit"):
+                fn(stream, states, table, n, T, instance="ring")
+        # two renorm rounds alone (64 KB, a 128 KB ring) do
+        x = _values(n, S + 2) % 200
+        stream, states, T, decoders = _both_decoders(x, S, cuda)
+    for name, fn, plain, table in decoders:
+        assert table.NE == (0 if instance == "ring" and S == 16384 else 3)
+        before = decode.instance_launches[name][instance]
+        got = fn(stream, states, table, n, T, instance=instance)
+        assert decode.instance_launches[name][instance] == before + 1
+        assert torch.equal(got, plain(stream, states, table, n, T)), name
+        np.testing.assert_array_equal(
+            got.cpu().numpy().view(np.uint32).reshape(-1)[:n], x)
+
+
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_lockstep_short_and_odd_streams(cuda, instance):
+    """A stream shorter than one 16-byte granule; payloads that start at
+    every byte offset inside a granule (a slice of a larger tensor, as
+    the byte composites pass); stream lengths that are no multiple of
+    16."""
+    x = _values(9, 3)
+    stream, states, T, decoders = _both_decoders(x, 1, cuda)
+    assert 0 < stream.numel() < 16
+    for name, fn, plain, table in decoders:
+        for lead in (0, 1, 15):
+            at = torch.cat([torch.full((lead,), 0xAB, dtype=torch.uint8,
+                                       device=cuda), stream])[lead:]
+            got = fn(at, states, table, 9, T, instance=instance)
+            assert torch.equal(got, plain(stream, states, table, 9, T))
+    n, S = 40007, 1024
+    x = _values(n, 8, wide=True)
+    stream, states, T, decoders = _both_decoders(x, S, cuda)
+    for name, fn, plain, table in decoders:
+        want = plain(stream, states, table, n, T)
+        for lead in (1, 2, 3, 5, 8, 13, 15):
+            pad = torch.full((lead,), 0xCD, dtype=torch.uint8, device=cuda)
+            at = torch.cat([pad, stream, pad])[lead:lead + stream.numel()]
+            assert at.data_ptr() % 16 == lead
+            assert torch.equal(fn(at, states, table, n, T,
+                                  instance=instance), want), (name, lead)
+        for cut in (1, 7, 16, 33):  # the last steps' bytes are missing
+            with pytest.raises(ValueError, match="corrupt"):
+                fn(stream[: stream.numel() - cut], states, table, n, T,
+                   instance=instance)
+
+
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_lockstep_truncated_and_corrupt_streams(cuda, instance):
+    """Half a stream raises; flipped bytes decode to what the plain
+    version decodes from them, or raise where it raises."""
+    n, S = 40000, 1024
+    x = _values(n, 5, wide=True)
+    stream, states, T, decoders = _both_decoders(x, S, cuda)
+    rng = np.random.default_rng(1)
+    flipped = stream.clone()
+    at = torch.from_numpy(rng.integers(0, stream.numel(), 64)).to(cuda)
+    flipped[at] ^= 0x5A
+    for name, fn, plain, table in decoders:
+        with pytest.raises(ValueError, match="corrupt"):
+            fn(stream[: stream.numel() // 2].clone(), states, table, n, T,
+               instance=instance)
+        try:
+            want = plain(flipped, states, table, n, T)
+        except ValueError:
+            with pytest.raises(ValueError, match="corrupt"):
+                fn(flipped, states, table, n, T, instance=instance)
+        else:
+            assert torch.equal(fn(flipped, states, table, n, T,
+                                  instance=instance), want), name
+        bad_states = states.clone()
+        bad_states[::3] = 1 << 23  # every third lane reads too much
+        try:
+            want = plain(stream, bad_states, table, n, T)
+        except ValueError:
+            with pytest.raises(ValueError, match="corrupt"):
+                fn(stream, bad_states, table, n, T, instance=instance)
+        else:
+            assert torch.equal(fn(stream, bad_states, table, n, T,
+                                  instance=instance), want), name
+
+
+@pytest.mark.parametrize("lanes_per_thread", [2, 8, 16])
+def test_lockstep_lanes_per_thread(cuda, monkeypatch, lanes_per_thread):
+    """Fewer threads with more lanes each (512 x 8 at S = 4096) decode
+    what the default block shape decodes; a count S does not allow (2 at
+    S = 4096, where the default is already 4) leaves the default."""
+    n, S = 20 * 4096 + 7, 4096
+    x = _values(n, 21, wide=True)
+    stream, states, T, decoders = _both_decoders(x, S, cuda)
+    for name, fn, plain, table in decoders:
+        want = fn(stream, states, table, n, T)
+        monkeypatch.setattr(decode, "lanes_per_thread", lanes_per_thread)
+        for instance in decode.INSTANCES:
+            assert torch.equal(fn(stream, states, table, n, T,
+                                  instance=instance), want), (name, instance)
+        monkeypatch.setattr(decode, "lanes_per_thread", 0)
+    np.testing.assert_array_equal(
+        want.cpu().numpy().view(np.uint32).reshape(-1)[:n], x)
+
+
+def test_direct_frame_that_fills_the_block(cuda):
+    """M = 2^16 with 5500 live symbols: 219 KB of tables leave the ring
+    no room, so the wrapper takes the instance on global loads; forcing
+    the ring raises."""
+    rng = np.random.default_rng(12)
+    sigma, n, S = 5500, 90000, 4096
+    nf = np.ones(sigma, np.int64)
+    nf += rng.multinomial((1 << 16) - sigma, np.full(sigma, 1 / sigma))
+    nf = nf.astype(np.uint64)
+    x = rng.choice(sigma, size=n, p=nf / nf.sum()).astype(np.uint32)
+    xt = torch.from_numpy(x.view(np.int32)).to(cuda)
+    zero = torch.zeros_like(xt)
+    enc = tables.to_device(tables.build_enc_table(nf), cuda)
+    st = tables.build_search_table(nf)
+    stream, states, T = _encode_all(xt, zero, zero, enc, n, S)
+    assert tables.direct_fits(st)
+    dd = _direct(st, cuda)
+    assert decode.choose_instance(
+        "decode_direct", tables.direct_table_bytes(st), S,
+        dd.NR + dd.NE) == ("global", 0)
+    before = dict(decode.instance_launches["decode_direct"])
+    got = decode.decode_direct(stream, states, dd, n, T)
+    assert decode.instance_launches["decode_direct"] == {
+        "ring": before["ring"], "global": before["global"] + 1}
+    assert torch.equal(got, lane_codec.decode_direct_plain(stream, states,
+                                                           dd, n, T))
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32).reshape(-1)[:n], x)
+    with pytest.raises(ValueError, match="does not fit"):
+        decode.decode_direct(stream, states, dd, n, T, instance="ring")
+    # K3's tables on the same frame are small: it takes the ring
+    dec = tables.to_device(st, cuda)
+    before = decode.instance_launches["decode_search"]["ring"]
+    assert torch.equal(decode.decode_search(stream, states, dec, n, T), got)
+    assert decode.instance_launches["decode_search"]["ring"] == before + 1
+
+
+# --------------------------------------------------------------------------
+# the step probe (csrc/op_probe.cu)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("threads", [32, 1024])
+@pytest.mark.parametrize("name", sorted(probe.CHAINS))
+def test_probe_chain_matches_plain(cuda, name, threads):
+    """Every chain's final values equal the plain chain's, exactly."""
+    inp = probe.make_inputs(cuda, 1 << 20)
+    x = probe.make_x(name, threads, cuda)
+    count = probe.launches
+    got, clocks = probe.run_kernel(name, x, 2, inp)
+    assert probe.launches == count + 1 and clocks > 0
+    assert torch.equal(got, probe.run_plain(name, x, 2, inp))
+    assert torch.equal(probe.run(name, x, 2, inp), got)
 
 
 # --------------------------------------------------------------------------

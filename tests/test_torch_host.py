@@ -227,7 +227,8 @@ def test_imports_without_jax():
         assert {"ans_tpu_torch.models.bytes", "ans_tpu_torch.ops.bytesplit",
                 "ans_tpu_torch.reference_model.byte_model",
                 "ans_tpu_torch.bench_crossover", "ans_tpu_torch.constants",
-                "ans_tpu_torch.profile_idle"} <= set(names), names
+                "ans_tpu_torch.profile_idle", "ans_tpu_torch.probe"} <= set(
+                    names), names
         import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
@@ -261,6 +262,7 @@ def test_port_sources_import_neither_jax_nor_ans_tpu():
     files = sorted(Path(REPO, "ans_tpu_torch").rglob("*.py"))
     files.append(Path(REPO, "chip_smoke.py"))
     assert len(files) > 25
+    assert Path(REPO, "ans_tpu_torch", "probe.py") in files
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -268,6 +270,24 @@ def test_port_sources_import_neither_jax_nor_ans_tpu():
         "    from ans_tpu.ops import x\n") and pattern.findall(
         "from ans_tpu import models\n")
     assert not pattern.findall("from ans_tpu_torch import models\n")
+
+
+def test_kernel_sources_include_only_cuda_and_their_own_headers():
+    """Every csrc/*.cu of build.KERNELS (the probe's op_probe.cu with
+    them) and every *.cuh includes the CUDA runtime, <cstdint> and the
+    port's own headers, nothing else: no library supplies a kernel."""
+    own = {p.name for p in build.CSRC.glob("*.cuh")}
+    assert {"common.cuh", "lockstep.cuh", "bytescan.cuh"} <= own
+    sources = [build.CSRC / f"{name}.cu" for name in build.KERNELS]
+    assert build.CSRC / "op_probe.cu" in sources and len(sources) == 10
+    assert sorted(sources) == sorted(build.CSRC.glob("*.cu"))
+    for path in sources + sorted(build.CSRC.glob("*.cuh")):
+        text = path.read_text()
+        includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text,
+                              re.M)
+        assert includes, path
+        assert set(includes) <= own | {"cstdint", "cuda_runtime.h"}, (
+            path, includes)
 
 
 # --------------------------------------------------------------------------
