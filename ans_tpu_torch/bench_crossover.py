@@ -80,26 +80,28 @@ def time_engines(label: str, table, payload, states, n: int, S: int,
         pd = engine.PreparedDecoder(payload, states, table, n, S=S, T=T,
                                     sec_len=sec_len, device=DEVICE,
                                     engine=name)
+        counts = decode.instance_launches.get(f"decode_{name}")
+        before = dict(counts) if counts else None
         got = pd().reshape(-1)[:n]
         if not torch.equal(got, want):
             raise RuntimeError(f"{label}: engine {name} decodes wrongly")
         rec["ms"][name] = cuda_ms(pd)
-        del pd
-    # K3 and K4 once more on global loads, where the wrapper took the ring
-    for name in rec["eligible"]:
-        if name == "grouped":
+        if counts is None:  # K5 has one instance
             continue
-        before = dict(decode.instance_launches[f"decode_{name}"])
-        pd = engine.PreparedDecoder(payload, states, table, n, S=S, T=T,
-                                    sec_len=sec_len, device=DEVICE,
-                                    engine=name, instance="global")
-        if not torch.equal(pd().reshape(-1)[:n], want):
+        rec.setdefault("instance", {})[name] = (
+            "ring" if counts["ring"] > before["ring"] else "global")
+        # K3 and K4 once more on the staged tensors, forced onto global loads
+        kernel = {"search": decode.decode_search,
+                  "direct": decode.decode_direct}[name]
+
+        def forced():
+            return kernel(pd.stream, pd.states, pd.table, n, T,
+                          instance="global")
+
+        if not torch.equal(forced().reshape(-1)[:n], want):
             raise RuntimeError(f"{label}: engine {name} on global loads "
                                f"decodes wrongly")
-        rec["ms"][f"{name}/global"] = cuda_ms(pd)
-        after = decode.instance_launches[f"decode_{name}"]
-        rec.setdefault("instance", {})[name] = (
-            "ring" if after["ring"] > before["ring"] else "global")
+        rec["ms"][f"{name}/global"] = cuda_ms(forced)
         del pd
     return rec
 
@@ -130,9 +132,6 @@ def synthetic_frame(sigma: int, log2m: int, n: int, S: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON object to this file")
-    ap.add_argument("--lanes-per-thread", type=int, default=0,
-                    help="lanes a thread of K3 / K4 owns (default: S / 1024 "
-                         "on 1024 threads)")
     ap.add_argument("--quick", action="store_true",
                     help="n = 2^20 everywhere: a check, not a measurement")
     args = ap.parse_args(argv)
@@ -144,7 +143,6 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
-    decode.lanes_per_thread = args.lanes_per_thread
     full_n = 1 << (20 if args.quick else 25)
     syn_n = 1 << (20 if args.quick else 23)
     recs = []
@@ -185,8 +183,7 @@ def main(argv=None) -> int:
     for sigma, log2m in ((256, 12), (1546, 15), (9000, 14)):
         emit(synthetic_frame(sigma, log2m, syn_n >> 3, 32))
 
-    result = {"card": smi, "runs": RUNS,
-              "lanes_per_thread": args.lanes_per_thread, "frames": recs}
+    result = {"card": smi, "runs": RUNS, "frames": recs}
     text = json.dumps(result)
     print(text)
     if args.out:

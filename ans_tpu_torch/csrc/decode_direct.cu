@@ -116,7 +116,6 @@ struct Args {
   int64_t stream_len, n;
   int sigma, log2m, NR, NE, T, S;
   uint32_t ring_bytes;
-  int threads;
   void *out, *err;
   cudaStream_t cs;
 };
@@ -132,7 +131,7 @@ cudaError_t launch(const Args& a) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, a.threads, smem, a.cs>>>(
+  kernel<<<1, lane::block_threads(a.S), smem, a.cs>>>(
       static_cast<const uint8_t*>(a.stream), a.stream_len,
       static_cast<const int32_t*>(a.states),
       static_cast<const int4*>(a.rows),
@@ -156,27 +155,24 @@ cudaError_t launch_lpt(const Args& a) {
 // i32; err: one i32, set to 1 when a read passes the end of the stream.
 // ring_bytes: 0 for the instance on global loads, else the size of the
 // shared-memory ring, a power of two >= 2 * S * (NR + NE) + 16.
-// lanes_per_thread: 0 for S / 1024 lanes a thread on 1024 threads, else
-// lockstep::block_shape's.  stream_len < 2^31.  Returns the launch's
-// cudaError_t.
+// stream_len < 2^31.  Returns the launch's cudaError_t.
 extern "C" int decode_direct(const void* stream, int64_t stream_len,
                              const void* states, const void* rows,
                              const void* slot_sym, int sigma, int log2m,
                              int NR, int NE, int64_t n, int T, int S,
-                             int ring_bytes, int lanes_per_thread, void* out,
-                             void* err, void* cuda_stream) {
+                             int ring_bytes, void* out, void* err,
+                             void* cuda_stream) {
   if (T == 0) return 0;
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
       (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
-      stream_len < 0 || stream_len >= (int64_t(1) << 31))
+      stream_len < 0 || stream_len >= (int64_t(1) << 31) ||
+      (S > 1024 && S % 1024))
     return static_cast<int>(cudaErrorInvalidValue);
-  int lpt, threads;
-  if (!lockstep::block_shape(S, lanes_per_thread, lpt, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int lpt = S > 1024 ? S / 1024 : 1;
   const Args a{stream, states, rows, slot_sym, stream_len, n, sigma, log2m,
-               NR, NE, T, S, static_cast<uint32_t>(ring_bytes), threads, out,
-               err, static_cast<cudaStream_t>(cuda_stream)};
+               NR, NE, T, S, static_cast<uint32_t>(ring_bytes), out, err,
+               static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
     case 1: e = launch_lpt<1>(a); break;

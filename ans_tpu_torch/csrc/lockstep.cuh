@@ -99,9 +99,11 @@ __device__ __forceinline__ void warp_scan_publish(const uint32_t (&cnt)[NW],
 // first byte this warp's lanes read in round r of word w (the earlier
 // rounds' block totals plus the earlier warps' counts in this round), and
 // total the bytes of the whole step.  Lane i holds warp i's totals.  Every
-// slot is reduced, also one the frame lacks: with a branch on the (uniform)
-// round count around the reductions, ptxas -O3 of CUDA 12.9 gave code that
-// decoded wrongly in the instances on global loads.
+// slot is reduced, also one the frame lacks.  With `if (r < rounds) base =
+// __reduce_add_sync(...)` here, a branch on the (uniform) round count,
+// ptxas -O3 of CUDA 12.9 gave code that decoded wrongly, the same way on
+// every run and already with one warp (S = 32); the same source built with
+// -Xptxas -O0 or with -G decoded exactly (NVIDIA H100 80GB HBM3).
 template <int NW>
 __device__ __forceinline__ void block_bases(const uint32_t (*sw)[32],
                                             uint32_t (&base)[3 * NW],
@@ -333,21 +335,6 @@ __device__ __forceinline__ void store_lanes(int32_t* dst,
 #pragma unroll
     for (int l = 0; l < LPT; ++l) dst[l] = static_cast<int32_t>(v[l]);
   }
-}
-
-// Lanes a thread owns and threads of the block for S lanes: S / 1024 lanes a
-// thread on 1024 threads by default; `lanes_per_thread` (1, 2, 4, 8 or 16)
-// asks for fewer, fuller threads where S gives at least one warp of them.
-// Returns false for a lane count the kernels are not compiled for.
-inline bool block_shape(int S, int lanes_per_thread, int& lpt, int& threads) {
-  lpt = S > 1024 ? S / 1024 : 1;
-  threads = lane::block_threads(S);
-  if (lanes_per_thread > lpt && lanes_per_thread <= 16 &&
-      S % (32 * lanes_per_thread) == 0) {
-    lpt = lanes_per_thread;
-    threads = S / lpt;
-  }
-  return (lpt & (lpt - 1)) == 0 && lpt <= 16 && threads * lpt >= S;
 }
 
 }  // namespace lockstep

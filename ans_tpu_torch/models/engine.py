@@ -17,8 +17,6 @@ the wire; `choose_decode_engine` picks it from the table.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -62,12 +60,11 @@ class PreparedDecoder:
     """All decode inputs staged on `device`; call to run the decoder.
     `engine` is "search" (K3), "grouped" (K5) or "direct" (K4); None
     leaves the choice to choose_decode_engine.  An engine the table is
-    not eligible for raises ValueError.  `instance` ("ring" or "global")
-    forces the instance of K3 or K4 that ops.decode would choose."""
+    not eligible for raises ValueError."""
 
     def __init__(self, payload: np.ndarray, states: np.ndarray, table,
                  n: int, *, S: int, T: int, sec_len, device,
-                 engine: str | None = None, instance: str | None = None):
+                 engine: str | None = None):
         if int(np.sum(sec_len)) != len(payload):
             raise ValueError("corrupt lane header: section lengths do not "
                              "sum to the stream length")
@@ -86,10 +83,6 @@ class PreparedDecoder:
             table = tables.materialize_slots(table)
         self._kernel = {"search": decode_search, "grouped": decode_grouped,
                         "direct": decode_direct}[engine]
-        if instance is not None:
-            if engine == "grouped":
-                raise ValueError("the grouped engine has one instance")
-            self._kernel = functools.partial(self._kernel, instance=instance)
         self.table = tables.to_device(table, self.device)
         self.stream = torch.from_numpy(
             np.array(payload, dtype=np.uint8)).to(self.device)

@@ -40,11 +40,6 @@ MAX_LANES = 1 << 14
 
 INSTANCES = ("ring", "global")
 
-# lanes a decode thread of K3 / K4 owns: 0 leaves S / 1024 on 1024 threads;
-# 2..16 asks for fewer threads with more lanes each where S allows
-# (csrc/lockstep.cuh block_shape).  A tuning knob for measurements.
-lanes_per_thread = 0
-
 # K3 and K4 keep 32-bit stream offsets
 MAX_STREAM_BYTES = (1 << 31) - 1
 
@@ -81,7 +76,7 @@ def choose_instance(name: str, table_bytes: int, S: int, rounds: int,
 _ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
              ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
              ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
+             ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_search(stream: torch.Tensor, states: torch.Tensor,
@@ -113,8 +108,7 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
         build.ptr(stream), stream.numel(), build.ptr(states),
         build.ptr(table.bases), build.ptr(table.high), build.ptr(table.nb),
         table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
-        ring, lanes_per_thread, build.ptr(out), build.ptr(err),
-        build.current_stream(dev)))
+        ring, build.ptr(out), build.ptr(err), build.current_stream(dev)))
     launches += 1
     instance_launches["decode_search"][which] += 1
     _raise_on(err)
@@ -123,7 +117,7 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
 
 _DIRECT_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                    ct.c_int64, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_int64, ct.c_int, ct.c_int, ct.c_int,
                     ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
@@ -156,7 +150,7 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
     build.check("decode_direct", fn(
         build.ptr(stream), stream.numel(), build.ptr(states),
         build.ptr(table.rows), build.ptr(table.slot_sym), table.sigma,
-        table.log2m, table.NR, table.NE, n, T, S, ring, lanes_per_thread,
+        table.log2m, table.NR, table.NE, n, T, S, ring,
         build.ptr(out), build.ptr(err), build.current_stream(dev)))
     direct_launches += 1
     instance_launches["decode_direct"][which] += 1

@@ -16,7 +16,8 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
   1. build: nvcc compiles the ten kernels from ans_tpu_torch/csrc, all at
      once;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
-     version on the same inputs (n = 2^20, S in {32, 4096}: K1-K4 on
+     version on the same inputs (S = 4096 at n = 2^20 and S = 32 at
+     n = 2^19, 16384 steps: K1-K4 on
      ANSfold-2 and on AnsByte's frame, K5/K6 on ANSfold-7 (in-kernel symbol
      -> rank map, high/nb table), on ANS without the escape (ranks, value
      table), on a frame whose ranks are its values, and with K4 on a
@@ -718,26 +719,28 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     errs = {}
-    z20 = zipf20_input(1 << 20)
-    for lanes in (32, 4096):
+    for lanes, log2n in ((32, 19), (4096, 20)):
+        n2 = 1 << log2n
+        z20 = zipf20_input(n2)
         for what, st in (
                 ("ANSfold-2", lambda: Stage(AnsFold(2, device=DEVICE),
-                                            bench_input(1 << 20, 7), lanes)),
+                                            bench_input(n2, 7), lanes)),
                 ("AnsByte", lambda: byte_stage(z20, lanes)),
                 ("ANSfold-7", lambda: Stage(AnsFold(7, device=DEVICE), z20,
                                             lanes)),
                 ("ANS (no escape)", lambda: Stage(AnsInt(device=DEVICE),
-                                                  dense_input(1 << 20),
-                                                  lanes)),
+                                                  dense_input(n2), lanes)),
                 ("identity frame", lambda: FrameStage(
-                    identity_frame(), 1 << 20, lanes, True)),
+                    identity_frame(), n2, lanes, True)),
                 ("small grouped frame", lambda: FrameStage(
-                    small_grouped_frame(), 1 << 20, lanes, False))):
+                    small_grouped_frame(), n2, lanes, False))):
             res = check_kernels(st(), timed=False)
             merge_errs(errs, res)
-            print(f"kernels == plain, {what} at n=2^20, S={lanes}: "
+            print(f"kernels == plain, {what} at n=2^{log2n}, S={lanes}: "
                   + ", ".join(f"{k} max_abs_err {v['max_abs_err']}"
                               for k, v in res.items()))
+    print(f"kernels against plain at small depth: "
+          f"{time.perf_counter() - t_start:.0f} s since the start")
     rng = np.random.default_rng(9)
     mixed = rng.integers(0, 1 << 32, size=1 << 20, dtype=np.uint32) >> (
         rng.integers(0, 32, size=1 << 20).astype(np.uint32))

@@ -534,25 +534,6 @@ def test_lockstep_truncated_and_corrupt_streams(cuda, instance):
                                   instance=instance), want), name
 
 
-@pytest.mark.parametrize("lanes_per_thread", [2, 8, 16])
-def test_lockstep_lanes_per_thread(cuda, monkeypatch, lanes_per_thread):
-    """Fewer threads with more lanes each (512 x 8 at S = 4096) decode
-    what the default block shape decodes; a count S does not allow (2 at
-    S = 4096, where the default is already 4) leaves the default."""
-    n, S = 20 * 4096 + 7, 4096
-    x = _values(n, 21, wide=True)
-    stream, states, T, decoders = _both_decoders(x, S, cuda)
-    for name, fn, plain, table in decoders:
-        want = fn(stream, states, table, n, T)
-        monkeypatch.setattr(decode, "lanes_per_thread", lanes_per_thread)
-        for instance in decode.INSTANCES:
-            assert torch.equal(fn(stream, states, table, n, T,
-                                  instance=instance), want), (name, instance)
-        monkeypatch.setattr(decode, "lanes_per_thread", 0)
-    np.testing.assert_array_equal(
-        want.cpu().numpy().view(np.uint32).reshape(-1)[:n], x)
-
-
 def test_direct_frame_that_fills_the_block(cuda):
     """M = 2^16 with 5500 live symbols: 219 KB of tables leave the ring
     no room, so the wrapper takes the instance on global loads; forcing
