@@ -7,7 +7,7 @@ For each frame it stages one blob once per eligible engine ("search" K3
 or "grouped" K5, the layout's own, and "direct" K4 where the per-slot
 table fits shared memory), checks that every engine decodes the input
 exactly, and times the prepared decode with CUDA events (min of 5 after
-a warm-up); K3 and K4 are timed in the instance the wrapper picks (the
+a warm-up); each engine is timed in the instance its wrapper picks (the
 stream staged in a shared-memory ring where it fits beside the tables)
 and, as "<engine>/global", forced onto global loads.  Frames:
 
@@ -80,18 +80,17 @@ def time_engines(label: str, table, payload, states, n: int, S: int,
         pd = engine.PreparedDecoder(payload, states, table, n, S=S, T=T,
                                     sec_len=sec_len, device=DEVICE,
                                     engine=name)
-        counts = decode.instance_launches.get(f"decode_{name}")
-        before = dict(counts) if counts else None
+        counts = decode.instance_launches[f"decode_{name}"]
+        before = dict(counts)
         got = pd().reshape(-1)[:n]
         if not torch.equal(got, want):
             raise RuntimeError(f"{label}: engine {name} decodes wrongly")
         rec["ms"][name] = cuda_ms(pd)
-        if counts is None:  # K5 has one instance
-            continue
         rec.setdefault("instance", {})[name] = (
             "ring" if counts["ring"] > before["ring"] else "global")
-        # K3 and K4 once more on the staged tensors, forced onto global loads
+        # once more on the staged tensors, forced onto global loads
         kernel = {"search": decode.decode_search,
+                  "grouped": decode.decode_grouped,
                   "direct": decode.decode_direct}[name]
 
         def forced():

@@ -1,8 +1,8 @@
 // Shared pieces of the lane-engine kernels: the fmt-2 constants, the
-// encode step of K1 and K6, the block-wide exclusive scan that turns
-// per-thread byte-round counts into ranks in lane order, and the byte
-// reads of one lockstep decode step as K5 makes them (K3 and K4 take the
-// step of lockstep.cuh).
+// encode step of K1 and K6, the Granlund-Montgomery divide, and the
+// block-wide exclusive scan that turns per-thread byte-round counts into
+// ranks in lane order (K2; the decodes K3-K5 take the step of
+// lockstep.cuh).
 #pragma once
 
 #include <cstdint>
@@ -102,75 +102,6 @@ __device__ __forceinline__ uint32_t encode_step(uint32_t& st, uint32_t f,
   const uint32_t r = st - q * f;
   st = (q << log2m) + r + base;
   return b0 | (b1 << 8) | (b2 << 16) | ((e0 + e1 + e2) << 24);
-}
-
-// The byte reads of one lockstep decode step (K5), for the LPT lanes of
-// this thread.  rc[l] renorm bytes (round j < NR holds every lane's j-th
-// one) and ne[l] exception bytes (round NR + j) are known before any read,
-// so each round's block-wide exclusive scan gives a lane its rank, and its
-// byte sits at cursor + (the earlier rounds' totals) + rank.  Renorm bytes
-// are shifted into st[l], exception bytes into low[l], both high-first.  A
-// read at or past stream_len sets `bad` and reads 0.  Every thread of the
-// block calls it; returns the cursor after the step.
-template <int LPT>
-__device__ __forceinline__ int64_t read_merge(
-    const uint8_t* __restrict__ stream, int64_t stream_len, int64_t cursor,
-    int NR, int NE, const int (&rc)[LPT], const int (&ne)[LPT],
-    uint32_t (&st)[LPT], uint32_t (&low)[LPT], bool& bad, ScanScratch& s) {
-  // The lane loops unroll fully up to 8 lanes a thread.  The 16-lane
-  // instance (S = 16384) stays rolled: fully unrolled, ptxas -O3 of CUDA
-  // 12.9 gave code that read the later rounds' bytes at wrong positions
-  // from the second step on, while -Xptxas -O0 and the rolled loop decode
-  // exactly (tests/test_torch_cuda.py holds S = 16384).
-  constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
-  int cnt[MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
-#pragma unroll LANE_UNROLL
-  for (int l = 0; l < LPT; ++l) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      if (j < NR) cnt[j] += rc[l] > j;
-      if (j < NE) cnt[NR + j] += ne[l] > j;
-    }
-  }
-  int excl[MAX_ROUNDS], tot[MAX_ROUNDS];
-  block_exclusive_scan(NR + NE, cnt, excl, tot, s);
-
-  // stream position of this thread's next byte in each round
-  int64_t pos[MAX_ROUNDS];
-  int64_t base = cursor;
-#pragma unroll
-  for (int r = 0; r < MAX_ROUNDS; ++r) {
-    if (r < NR + NE) {
-      pos[r] = base + excl[r];
-      base += tot[r];
-    }
-  }
-#pragma unroll LANE_UNROLL
-  for (int l = 0; l < LPT; ++l) {
-    uint32_t v = st[l];
-    uint32_t lo = 0;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      if (j < NR && rc[l] > j) {
-        const int64_t p = pos[j]++;
-        const bool in = p < stream_len;
-        bad |= !in;
-        v = (v << 8) | (in ? stream[p] : 0u);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      if (j < NE && ne[l] > j) {
-        const int64_t p = pos[NR + j]++;
-        const bool in = p < stream_len;
-        bad |= !in;
-        lo = (lo << 8) | (in ? stream[p] : 0u);
-      }
-    }
-    st[l] = v;
-    low[l] = lo;
-  }
-  return base;
 }
 
 // Threads per block for a kernel that spreads S lanes over one block.

@@ -4,215 +4,268 @@
 // Replaces the TPU kernel ans_tpu/ops/pallas_decode.py `_kernel_grouped`
 // (with `_read_merge`), reached through `stage_grouped` and `_call_grouped`.
 //
-// What it computes, per step t and lane: slot = state & (M-1); a bitwise
-// binary search over the NG group slot boundaries gives the group m and its
-// first slot lb; x = slot - lb and j = x / f (f = g_f[m]) by the
-// Granlund-Montgomery multiply-high, f == 1 selected around it; rank =
-// g_rank0[m] + j; st0 = f * (state >> log2m) + (x - j*f).  The renorm and
-// exception byte counts (st0 < L >> 8j for j < NR; nb[rank]) are known
-// before any read, so the bytes come in as in K3 (lane::read_merge: block
-// ranks per round, one global cursor, high-first merge).  The value is
-// table[rank] + the exception bytes, or the rank itself when there is no
-// table.  The TPU kernel's per-section cursor reset, split windows and
-// bit-packed plane scans are not carried over.
+// What it computes, per step t and lane: slot = state & (M-1); the group m
+// whose slots hold it (the last of the NG sorted group slot boundaries at or
+// below the slot) and its first slot lb; x = slot - lb and j = x / f
+// (f = g_f[m]) by the Granlund-Montgomery multiply-high, f == 1 selected
+// around it; rank = g_rank0[m] + j; st0 = f * (state >> log2m) + (x - j*f).
+// The renorm and exception byte counts (st0 < L >> 8j for j < NR; nb[rank])
+// are known before any read, so the bytes come in by the lockstep step
+// (lockstep.cuh).  The value is table[rank] + the exception bytes, or the
+// rank itself when there is no table.  The TPU kernel's per-section cursor
+// reset, split windows and bit-packed plane scans are not carried over.
 //
-// What bounds it on the card: the lockstep, as K3.  All S lanes share one
-// byte cursor, so one stream decodes in one block on one SM; each step is
-// a chain of dependent shared-memory probes, a divide, block-wide scans
-// behind two barriers and a round of dependent byte loads.
+// What bounds it on the card: the lockstep, as K3 and K4.  All S lanes
+// share one byte cursor, so one stream decodes in one block on one SM, and
+// at 1024 threads a step costs what the 32 warps execute on the SM's integer
+// pipe and the bank conflicts of their random shared-memory loads (the
+// search's probes, the 16-byte group row, the per-rank table), not the
+// latency of one lane's chain (python3 -m ans_tpu_torch.probe, chain
+// group_search).  Neither the bytes moved nor the arithmetic come near the
+// card's rates; only a batch of streams, one per block, could.
 //
-// What the design does about it: one block per stream, LPT = S/1024 lanes
-// per thread with their states in registers; the group rows [f, magic,
-// slot0, rank0] and the slot boundaries (NG <= 2896, at most ~63 KB) live
-// in shared memory.  The per-rank table and nb live there too when they fit
-// (SMEM_TABLE; fold-7 on 2^20-value data: sigma ~20k, ~100 KB); otherwise
-// (raw-value tables up to ~2^20 entries) they are read from global memory
-// through __ldg, issued before the step's block scan so their latency
-// overlaps it.  Every stream read is checked against the stream length.
-#include "common.cuh"
+// What the design does about it: the step is lockstep.cuh's (the stream
+// staged in a shared-memory ring by cp.async one step ahead, static round
+// slots in one packed scan, one barrier, one byte window per round and
+// thread, 16-byte output stores).  The search is short: the boundaries are
+// sorted, so a host-built bucket table first[slot >> shift] (u16, at most
+// 1024 entries) names the group that holds the bucket's first slot, and
+// `levels` probes (m + bit over the boundaries, padded with M) finish it,
+// `levels` being what the bucket that spans most groups needs (1 on
+// ANSfold-7 over 2^20-value data against a full search's 8).  The searches
+// of a thread's LPT = S/1024 lanes advance level by level together, so
+// their probes overlap.  Group rows [f, magic, slot0, rank0] are one
+// 16-byte shared-memory load.  The per-rank table and nb live in shared
+// memory when they fit (SMEM_TABLE; nb stored as ten times the count, the
+// shift that makes its round mask); otherwise (raw-value tables up to 2^20
+// entries) they are read from global memory through __ldg, the value's load
+// started before the step's scan so its latency overlaps it.  Where the
+// tables leave the ring no room the stream takes global loads (ring_bytes
+// = 0; the wrapper chooses both).  Every read is checked against the
+// stream length.
+#include "lockstep.cuh"
 
 namespace {
 
-template <int LPT, bool SMEM_TABLE>
+template <int LPT, int NES, bool RING, bool SMEM_TABLE>
 __global__ void __launch_bounds__(1024)
 decode_grouped_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
                       const int32_t* __restrict__ states,
                       const int4* __restrict__ groups_g,
                       const int32_t* __restrict__ bases_g,
+                      const uint16_t* __restrict__ buckets_g,
                       const int32_t* __restrict__ table_g,
-                      const uint8_t* __restrict__ nb_g, int NG, int depth,
-                      int sigma, int log2m, int NR, int NE, int64_t n, int T,
-                      int S, int32_t* __restrict__ out,
-                      int32_t* __restrict__ err) {
+                      const uint8_t* __restrict__ nb_g, int NG, int levels,
+                      int shift, int sigma, int log2m, int NR, int NE,
+                      int64_t n, int T, int S, uint32_t ring_bytes,
+                      int32_t* __restrict__ out, int32_t* __restrict__ err) {
+  constexpr int NW = lockstep::Rounds<NES>::NW;
+  // The lane loops unroll fully up to 8 lanes a thread (lockstep.cuh).
+  constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
   extern __shared__ int4 smem[];
-  __shared__ lane::ScanScratch scratch[2];
-  const int P = 1 << depth;
+  __shared__ uint32_t scratch[2][NW][32];
+  const uint32_t M = 1u << log2m;
   const bool has_table = table_g != nullptr;
-  int4* groups = smem;                                       // NG
-  int32_t* bases = reinterpret_cast<int32_t*>(groups + NG);  // P + 1
-  int32_t* table_s = bases + P + 1;                          // sigma
-  uint8_t* nb_s = reinterpret_cast<uint8_t*>(
-      table_s + (has_table ? sigma : 0));                    // sigma
+  const int nbounds = NG + (1 << levels);  // boundaries a probe may touch
+  const int nbuckets = static_cast<int>((M - 1) >> shift) + 1;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem);            // ring_bytes
+  int4* groups = smem + ring_bytes / 16;                       // NG
+  int32_t* bases = reinterpret_cast<int32_t*>(groups + NG);    // nbounds
+  int32_t* table_s = bases + nbounds;                          // sigma
+  uint16_t* buckets = reinterpret_cast<uint16_t*>(
+      table_s + (SMEM_TABLE && has_table ? sigma : 0));        // nbuckets
+  uint8_t* nb_s = reinterpret_cast<uint8_t*>(buckets + nbuckets);  // sigma
   for (int i = threadIdx.x; i < NG; i += blockDim.x) groups[i] = groups_g[i];
-  for (int i = threadIdx.x; i <= P; i += blockDim.x) bases[i] = bases_g[i];
-  if (SMEM_TABLE) {
+  for (int i = threadIdx.x; i < nbounds; i += blockDim.x)
+    bases[i] = i < NG ? bases_g[i] : static_cast<int32_t>(M);
+  for (int i = threadIdx.x; i < nbuckets; i += blockDim.x)
+    buckets[i] = buckets_g[i];
+  if constexpr (SMEM_TABLE) {
     if (has_table)
       for (int i = threadIdx.x; i < sigma; i += blockDim.x)
         table_s[i] = table_g[i];
-    if (NE > 0)
-      for (int i = threadIdx.x; i < sigma; i += blockDim.x) nb_s[i] = nb_g[i];
+    if constexpr (NES > 0)
+      for (int i = threadIdx.x; i < sigma; i += blockDim.x)
+        nb_s[i] = static_cast<uint8_t>(
+            lockstep::FIELD_BITS * min(static_cast<int>(nb_g[i]), NE));
   }
+  lockstep::Stream<RING> src;
+  src.begin(stream, static_cast<uint32_t>(stream_len),
+            static_cast<uint32_t>(S) * (NR + NE), ring, ring_bytes);
   __syncthreads();
-  auto table_at = [&](uint32_t r) -> uint32_t {
-    return static_cast<uint32_t>(SMEM_TABLE ? table_s[r] : __ldg(table_g + r));
-  };
-  auto nb_at = [&](uint32_t r) -> int {
-    return SMEM_TABLE ? nb_s[r] : __ldg(nb_g + r);
-  };
 
   const int l0 = threadIdx.x * LPT;
   const bool owns = l0 < S;  // S < 32 leaves threads idle
-  const uint32_t M = 1u << log2m;
   uint32_t st[LPT];
 #pragma unroll
   for (int l = 0; l < LPT; ++l)
     st[l] = owns ? static_cast<uint32_t>(states[l0 + l]) : lane::A_L;
 
-  int64_t cursor = 0;
+  uint32_t thr[3];  // renorm thresholds; 0 for a round the frame lacks
+#pragma unroll
+  for (int j = 0; j < 3; ++j) thr[j] = j < NR ? lane::A_L >> (8 * j) : 0u;
+
   bool bad = false;
   for (int t = 0; t < T; ++t) {
     const int64_t row = static_cast<int64_t>(t) * S + l0;
-    uint32_t val[LPT];
-    int rc[LPT], ne[LPT];
-#pragma unroll
+    // lanes of this thread inside the n values (all of them but in the
+    // last step)
+    const int64_t left = n - row;
+    const int live = !owns ? 0 : left < LPT ? static_cast<int>(left) : LPT;
+    // The group m: the bucket names the group of its first slot, then one
+    // level of every lane's search at a time (LPT independent probes)
+    // takes m to the last boundary at or below the slot.
+    int m[LPT];
+    uint32_t slot[LPT];
+#pragma unroll LANE_UNROLL
     for (int l = 0; l < LPT; ++l) {
-      const bool valid = owns && row + l < n;
-      const uint32_t slot = st[l] & (M - 1);
-      int m = 0;
-      uint32_t lb = 0;
-      for (int k = depth - 1; k >= 0; --k) {
-        const uint32_t pv =
-            static_cast<uint32_t>(bases[(m << (k + 1)) | (1 << k)]);
-        const bool take = slot >= pv;
-        m = 2 * m + take;
-        lb = take ? pv : lb;
+      slot[l] = st[l] & (M - 1);
+      m[l] = buckets[slot[l] >> shift];
+    }
+    for (int bit = (1 << levels) >> 1; bit > 0; bit >>= 1) {
+#pragma unroll LANE_UNROLL
+      for (int l = 0; l < LPT; ++l) {
+        const int probe = m[l] + bit;
+        m[l] = slot[l] >= static_cast<uint32_t>(bases[probe]) ? probe : m[l];
       }
-      const int4 g = groups[m];
+    }
+    uint32_t need[NW][LPT], val[LPT];
+#pragma unroll LANE_UNROLL
+    for (int l = 0; l < LPT; ++l) {
+      const bool valid = l < live;
+      const int4 g = groups[m[l]];
       const uint32_t f = static_cast<uint32_t>(g.x);
-      const uint32_t x = slot - lb;
+      const uint32_t x = slot[l] - static_cast<uint32_t>(g.z);
       const uint32_t j = f == 1 ? x : lane::gm_div(x, f, g.y);
       const uint32_t rank = static_cast<uint32_t>(g.w) + j;
-      if (valid) st[l] = f * (st[l] >> log2m) + (x - j * f);
-      int r = 0;
-#pragma unroll
-      for (int jj = 0; jj < 3; ++jj)
-        r += valid && jj < NR && st[l] < (lane::A_L >> (8 * jj));
-      rc[l] = r;
-      ne[l] = valid && NE > 0 ? nb_at(rank) : 0;
-      val[l] = owns && has_table ? table_at(rank) : rank;
+      const uint32_t s0 = f * (st[l] >> log2m) + (x - j * f);
+      if (valid) st[l] = s0;
+      need[0][l] = lockstep::renorm_need(valid ? s0 : ~0u, thr);
+      if constexpr (NES > 0) {
+        // ten times the exception-byte count: the ones below it are the
+        // rounds the lane reads in
+        const uint32_t sh =
+            SMEM_TABLE ? nb_s[rank]
+                       : lockstep::FIELD_BITS *
+                             min(static_cast<int>(__ldg(nb_g + rank)), NE);
+        need[1][l] = valid ? 0x00100401u & ~(~0u << sh) : 0u;
+      }
+      val[l] = !has_table   ? rank
+               : SMEM_TABLE ? static_cast<uint32_t>(table_s[rank])
+                            : static_cast<uint32_t>(__ldg(table_g + rank));
     }
-    uint32_t low[LPT];
-    cursor = lane::read_merge<LPT>(stream, stream_len, cursor, NR, NE, rc, ne,
-                                   st, low, bad, scratch[t & 1]);
-#pragma unroll
-    for (int l = 0; l < LPT; ++l)
-      if (owns) out[row + l] = static_cast<int32_t>(val[l] + low[l]);
+    uint32_t low[LPT] = {};
+    lockstep::read_step<LPT, NES, RING>(src, NR, NE, need, st, low, bad,
+                                        scratch[t & 1]);
+#pragma unroll LANE_UNROLL
+    for (int l = 0; l < LPT; ++l) val[l] += low[l];
+    if (owns) lockstep::store_lanes<LPT>(out + row, val);
   }
   if (bad) *err = 1;
 }
 
-// Shared bytes of the group rows and slot boundaries, and of the per-rank
-// table and nb.
-size_t group_bytes(int NG, int depth) {
-  return 16 * size_t(NG) + sizeof(int32_t) * ((size_t(1) << depth) + 1);
-}
-size_t table_bytes(bool has_table, int sigma, int NE) {
-  return (has_table ? sizeof(int32_t) * size_t(sigma) : 0) +
-         (NE > 0 ? size_t(sigma) : 0);
+struct Args {
+  const void *stream, *states, *groups, *bases, *buckets, *table, *nb;
+  int64_t stream_len, n;
+  int NG, levels, shift, sigma, log2m, NR, NE, T, S;
+  uint32_t ring_bytes;
+  bool smem_table;
+  void *out, *err;
+  cudaStream_t cs;
+};
+
+// Shared bytes of the tables: group rows, boundaries, the per-rank table
+// and the buckets (2-byte aligned behind the 4-byte words), then nb.
+size_t table_bytes(const Args& a) {
+  const size_t rank_table =
+      a.smem_table ? (a.table ? sizeof(int32_t) * size_t(a.sigma) : 0) +
+                         (a.NE > 0 ? size_t(a.sigma) : 0)
+                   : 0;
+  const size_t nbuckets = (((size_t(1) << a.log2m) - 1) >> a.shift) + 1;
+  return 16 * size_t(a.NG) +
+         sizeof(int32_t) * (size_t(a.NG) + (size_t(1) << a.levels)) +
+         2 * nbuckets + rank_table;
 }
 
-// dynamic shared memory a block may take beside the scan scratch
-constexpr size_t SMEM_LIMIT = 220 * 1024;
-
-template <int LPT, bool SMEM_TABLE>
-cudaError_t launch(const void* stream, int64_t stream_len, const void* states,
-                   const void* groups, const void* bases, const void* table,
-                   const void* nb, int NG, int depth, int sigma, int log2m,
-                   int NR, int NE, int64_t n, int T, int S, void* out,
-                   void* err, cudaStream_t cs) {
-  auto kernel = decode_grouped_kernel<LPT, SMEM_TABLE>;
-  const size_t smem =
-      group_bytes(NG, depth) +
-      (SMEM_TABLE ? table_bytes(table != nullptr, sigma, NE) : 0);
+template <int LPT, int NES, bool RING, bool SMEM_TABLE>
+cudaError_t launch(const Args& a) {
+  auto kernel = decode_grouped_kernel<LPT, NES, RING, SMEM_TABLE>;
+  const size_t smem = a.ring_bytes + table_bytes(a);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, lane::block_threads(S), smem, cs>>>(
-      static_cast<const uint8_t*>(stream), stream_len,
-      static_cast<const int32_t*>(states), static_cast<const int4*>(groups),
-      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(table),
-      static_cast<const uint8_t*>(nb), NG, depth, sigma, log2m, NR, NE, n, T,
-      S, static_cast<int32_t*>(out), static_cast<int32_t*>(err));
+  kernel<<<1, lane::block_threads(a.S), smem, a.cs>>>(
+      static_cast<const uint8_t*>(a.stream), a.stream_len,
+      static_cast<const int32_t*>(a.states),
+      static_cast<const int4*>(a.groups),
+      static_cast<const int32_t*>(a.bases),
+      static_cast<const uint16_t*>(a.buckets),
+      static_cast<const int32_t*>(a.table),
+      static_cast<const uint8_t*>(a.nb), a.NG, a.levels, a.shift, a.sigma,
+      a.log2m, a.NR, a.NE, a.n, a.T, a.S, a.ring_bytes,
+      static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
   return cudaGetLastError();
 }
 
+template <int LPT, int NES>
+cudaError_t launch_nes(const Args& a) {
+  if (a.smem_table)
+    return a.ring_bytes ? launch<LPT, NES, true, true>(a)
+                        : launch<LPT, NES, false, true>(a);
+  return a.ring_bytes ? launch<LPT, NES, true, false>(a)
+                      : launch<LPT, NES, false, false>(a);
+}
+
 template <int LPT>
-cudaError_t launch_lpt(bool smem_table, const void* stream,
-                       int64_t stream_len, const void* states,
-                       const void* groups, const void* bases,
-                       const void* table, const void* nb, int NG, int depth,
-                       int sigma, int log2m, int NR, int NE, int64_t n, int T,
-                       int S, void* out, void* err, cudaStream_t cs) {
-  return smem_table
-             ? launch<LPT, true>(stream, stream_len, states, groups, bases,
-                                 table, nb, NG, depth, sigma, log2m, NR, NE,
-                                 n, T, S, out, err, cs)
-             : launch<LPT, false>(stream, stream_len, states, groups, bases,
-                                  table, nb, NG, depth, sigma, log2m, NR, NE,
-                                  n, T, S, out, err, cs);
+cudaError_t launch_lpt(const Args& a) {
+  return a.NE > 0 ? launch_nes<LPT, 3>(a) : launch_nes<LPT, 0>(a);
 }
 
 }  // namespace
 
-// stream: (stream_len,) u8; states: (S,) i32; groups: (NG, 4) i32 rows
-// [f, magic, slot0, rank0]; bases: (2^depth + 1,) i32 group slot boundaries
-// padded with M; table: (sigma,) i32 per-rank value or high part, or null
-// (the rank is the value); nb: (sigma,) u8 exception bytes per rank, read
-// when NE > 0; out: (T, S) i32; err: one i32, set to 1 when a read passes
-// the end of the stream.  Returns the launch's cudaError_t.
+// stream: (stream_len,) u8 at any address; states: (S,) i32; groups: (NG, 4)
+// i32 rows [f, magic, slot0, rank0]; bases: at least NG i32, the groups'
+// first slots in order; buckets: ((2^log2m - 1 >> shift) + 1,) u16, the
+// group holding each bucket's first slot, from which at most 2^levels - 1
+// further groups begin inside the bucket; table: (sigma,) i32 per-rank value
+// or high part, or null (the rank is the value); nb: (sigma,) u8 exception
+// bytes per rank, read when NE > 0; out: (T, S) i32; err: one i32, set to 1
+// when a read passes the end of the stream.  ring_bytes: 0 for the instance
+// on global loads, else the size of the shared-memory ring, a power of two
+// >= 2 * S * (NR + NE) + 16.  smem_table: whether the per-rank table and nb
+// are staged in shared memory.  stream_len < 2^31.  Returns the launch's
+// cudaError_t.
 extern "C" int decode_grouped(const void* stream, int64_t stream_len,
                               const void* states, const void* groups,
-                              const void* bases, const void* table,
-                              const void* nb, int NG, int depth, int sigma,
-                              int log2m, int NR, int NE, int64_t n, int T,
-                              int S, void* out, void* err,
-                              void* cuda_stream) {
+                              const void* bases, const void* buckets,
+                              const void* table, const void* nb, int NG,
+                              int levels, int shift, int sigma, int log2m,
+                              int NR, int NE, int64_t n, int T, int S,
+                              int ring_bytes, int smem_table, void* out,
+                              void* err, void* cuda_stream) {
   if (T == 0) return 0;
+  if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
+      (ring_bytes & (ring_bytes - 1)) ||
+      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
+      stream_len < 0 || stream_len >= (int64_t(1) << 31) ||
+      (S > 1024 && S % 1024) || NG < 1 || levels < 0 || levels > 12 ||
+      shift < 0 || shift > log2m || (NE > 0 && nb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
-  const bool smem_table = group_bytes(NG, depth) +
-                              table_bytes(table != nullptr, sigma, NE) <=
-                          SMEM_LIMIT;
-  const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
+  const Args a{stream, states, groups, bases, buckets, table, nb,
+               stream_len, n, NG, levels, shift, sigma, log2m, NR, NE, T, S,
+               static_cast<uint32_t>(ring_bytes), smem_table != 0, out, err,
+               static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
-    case 1: e = launch_lpt<1>(smem_table, stream, stream_len, states, groups,
-                              bases, table, nb, NG, depth, sigma, log2m, NR,
-                              NE, n, T, S, out, err, cs); break;
-    case 2: e = launch_lpt<2>(smem_table, stream, stream_len, states, groups,
-                              bases, table, nb, NG, depth, sigma, log2m, NR,
-                              NE, n, T, S, out, err, cs); break;
-    case 4: e = launch_lpt<4>(smem_table, stream, stream_len, states, groups,
-                              bases, table, nb, NG, depth, sigma, log2m, NR,
-                              NE, n, T, S, out, err, cs); break;
-    case 8: e = launch_lpt<8>(smem_table, stream, stream_len, states, groups,
-                              bases, table, nb, NG, depth, sigma, log2m, NR,
-                              NE, n, T, S, out, err, cs); break;
-    case 16: e = launch_lpt<16>(smem_table, stream, stream_len, states,
-                                groups, bases, table, nb, NG, depth, sigma,
-                                log2m, NR, NE, n, T, S, out, err, cs); break;
+    case 1: e = launch_lpt<1>(a); break;
+    case 2: e = launch_lpt<2>(a); break;
+    case 4: e = launch_lpt<4>(a); break;
+    case 8: e = launch_lpt<8>(a); break;
+    case 16: e = launch_lpt<16>(a); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -13,62 +13,104 @@
 // base = g_slot0[m] + (rank - lbr) * f, magic = g_magic[m].  A symbol or a
 // rank outside the tables sets the error flag and codes as rank 0.
 //
-// What bounds it on the card: latency, as K1.  One thread per lane walks
-// T steps; each step is a chain of dependent loads (the symbol, its rank,
-// depth shared-memory probes, the group row) ahead of K1's arithmetic.
+// What bounds it on the card: the latency of one lane's state chain.  The
+// scan is sequential in t; a step's arithmetic (three compares and shifts,
+// a multiply-high divide, a multiply and a few adds) is a chain of about
+// forty dependent instructions, and T of them follow each other whatever
+// else the card does.  The lookup in front of it (the symbol from device
+// memory, its rank through rank_of, `depth` shared-memory probes, the group
+// row) is a chain several times longer, but independent of the state.
 //
-// What the design does about it: the NG-sized group rows [f, magic, slot0,
-// rank0] (one 16-byte load) and the rank boundaries live in shared memory,
-// at most 16*2896 + 4*4097 bytes since NG <= sqrt(2M); the sigma-sized
-// rank_of is read from global memory through __ldg.  The next step's
-// symbol, rank and group row are fetched before the current step's
-// arithmetic, so their latency overlaps it.  The tables stay NG-sized: no
-// per-rank freq/base table is built.
-#include "common.cuh"
+// What the design does about it (encode_ahead.cuh has the mechanism): the
+// lookups run a tile of 32 steps ahead of the chain, in warps of their
+// own, eight of them in flight a thread and their searches advancing level
+// by level together, and hand the rows [f, base, magic] over in shared
+// memory; a block
+// owns 32 lanes, so S = 4096 spreads over 128 of the 132 SMs.  The NG-sized
+// group rows [f, magic, slot0, rank0] (one 16-byte load) and the rank
+// boundaries live in shared memory, at most 16*2896 + 4*4097 bytes since
+// NG <= sqrt(2M); the sigma-sized rank_of is read from global memory
+// through __ldg.  The tables stay NG-sized: no per-rank freq/base table is
+// built.
+#include "encode_ahead.cuh"
 
 namespace {
 
-struct Tables {
-  const int4* groups;      // shared: NG rows [f, magic, slot0, rank0]
-  const int32_t* bases;    // shared: 2^depth + 1 rank boundaries
+// The lookup of one position: its symbol or rank, then its row.
+struct Find {
+  const int32_t* syms;     // global: (T, S) ranks or symbol ids
+  int groups_at;           // ahead::smem[groups_at ..]: NG rows [f, magic,
+                           // slot0, rank0], then 2^depth + 1 rank boundaries
+  int NG;
   const int32_t* rank_of;  // global, or nullptr when the input is ranks
   int64_t n_rank_of;
   int depth;
   uint32_t sigma;
-};
+  int32_t* err;
 
-// [f, base, magic] of the symbol at idx (zeros past n).
-__device__ __forceinline__ int4 lookup(const int32_t* __restrict__ syms,
-                                       const Tables& tb, int64_t idx,
-                                       int64_t n, int32_t* err) {
-  if (idx >= n) return make_int4(0, 0, 0, 0);
-  uint32_t r = static_cast<uint32_t>(__ldg(syms + idx));
-  if (tb.rank_of != nullptr) {
-    const uint32_t s = r & 0xFFFFFFu;
-    if (s >= tb.n_rank_of) {
-      *err = 1;
-      r = 0;
-    } else {
-      r = static_cast<uint32_t>(__ldg(tb.rank_of + s));
+  __device__ __forceinline__ uint32_t fetch(int64_t idx) const {
+    return static_cast<uint32_t>(__ldg(syms + idx));
+  }
+
+  __device__ __forceinline__ void prefetch(int64_t idx) const {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(syms + idx));
+  }
+
+  // The rows [f, base, magic, 0] of a batch of ranks or symbol ids x (zero
+  // rows where in[b] is not set).  The batch's rank_of loads start
+  // together, and its searches advance level by level together: B
+  // independent probes a level, where one lookup after the other would
+  // queue B * depth dependent ones.
+  template <int B>
+  __device__ __forceinline__ void rows(const uint32_t (&x)[B],
+                                       const bool (&in)[B],
+                                       int4 (&row)[B]) const {
+    const int4* groups = ahead::smem + groups_at;
+    const int32_t* bases = reinterpret_cast<const int32_t*>(groups + NG);
+    // every load is started before any result is looked at: an index
+    // outside the table reads entry 0 and is flagged afterwards
+    uint32_t r[B];
+    bool bad[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      r[b] = x[b];
+      bad[b] = false;
+      if (rank_of != nullptr) {
+        const uint32_t s = x[b] & 0xFFFFFFu;
+        bad[b] = s >= n_rank_of;
+        r[b] = static_cast<uint32_t>(__ldg(rank_of + (bad[b] ? 0u : s)));
+      }
+    }
+    int m[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      bad[b] |= r[b] >= sigma;  // a rank outside the frame
+      if (bad[b]) {
+        if (in[b]) *err = 1;  // flag it, code rank 0
+        r[b] = 0;
+      }
+      m[b] = 0;
+    }
+    for (int bit = (1 << depth) >> 1; bit > 0; bit >>= 1) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int probe = m[b] | bit;
+        m[b] = r[b] >= static_cast<uint32_t>(bases[probe]) ? probe : m[b];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int4 g = groups[m[b]];
+      const uint32_t f = static_cast<uint32_t>(g.x);
+      row[b] = in[b] ? make_int4(g.x,
+                                 static_cast<int32_t>(
+                                     g.z +
+                                     (r[b] - static_cast<uint32_t>(g.w)) * f),
+                                 g.y, 0)
+                     : make_int4(0, 0, 0, 0);
     }
   }
-  if (r >= tb.sigma) {
-    *err = 1;  // rank outside the frame: flag it, encode it as rank 0
-    r = 0;
-  }
-  int m = 0;
-  uint32_t lbr = 0;
-  for (int k = tb.depth - 1; k >= 0; --k) {
-    const uint32_t pv =
-        static_cast<uint32_t>(tb.bases[(m << (k + 1)) | (1 << k)]);
-    const bool take = r >= pv;
-    m = 2 * m + take;
-    lbr = take ? pv : lbr;
-  }
-  const int4 g = tb.groups[m];
-  const uint32_t f = static_cast<uint32_t>(g.x);
-  return make_int4(g.x, static_cast<int32_t>(g.z + (r - lbr) * f), g.y, 0);
-}
+};
 
 __global__ void encode_scan_grouped_kernel(
     const int32_t* __restrict__ syms, const int4* __restrict__ groups_g,
@@ -76,36 +118,16 @@ __global__ void encode_scan_grouped_kernel(
     int64_t n_rank_of, int NG, int depth, int sigma, int64_t n, int T, int S,
     int log2m, int32_t* __restrict__ packed, int32_t* __restrict__ states,
     int32_t* __restrict__ err) {
-  extern __shared__ int4 smem[];
-  int4* groups = smem;
+  const int groups_at = ahead::TILE_ROWS;
+  int4* groups = ahead::smem + groups_at;
   int32_t* bases = reinterpret_cast<int32_t*>(groups + NG);
   const int P = 1 << depth;
   for (int i = threadIdx.x; i < NG; i += blockDim.x) groups[i] = groups_g[i];
   for (int i = threadIdx.x; i <= P; i += blockDim.x) bases[i] = bases_g[i];
   __syncthreads();
-
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= S) return;
-  const Tables tb{groups, bases, rank_of, n_rank_of, depth,
-                  static_cast<uint32_t>(sigma)};
-  uint32_t st = lane::A_L;
-  int64_t idx = static_cast<int64_t>(T - 1) * S + lane;
-  int4 next = T > 0 ? lookup(syms, tb, idx, n, err) : make_int4(0, 0, 0, 0);
-  for (int t = T - 1; t >= 0; --t, idx -= S) {
-    const int4 row = next;
-    if (t > 0) next = lookup(syms, tb, idx - S, n, err);
-    uint32_t word;
-    if (idx < n) {
-      word = lane::encode_step(st, static_cast<uint32_t>(row.x),
-                               static_cast<uint32_t>(row.y),
-                               static_cast<uint32_t>(row.z), log2m);
-    } else {
-      const uint32_t b = st & 0xFF;  // pad position: no bytes, state kept
-      word = b | (b << 8) | (b << 16);
-    }
-    packed[idx] = static_cast<int32_t>(word);
-  }
-  states[lane] = static_cast<int32_t>(st);
+  const Find find{syms, groups_at, NG, rank_of, n_rank_of, depth,
+                  static_cast<uint32_t>(sigma), err};
+  ahead::scan_block(T, S, n, log2m, find, packed, states);
 }
 
 }  // namespace
@@ -121,10 +143,12 @@ extern "C" int encode_scan_grouped(const void* syms, const void* groups,
                                    int sigma, int64_t n, int T, int S,
                                    int log2m, void* packed, void* states,
                                    void* err, void* stream) {
-  const int threads = S < 256 ? (S < 32 ? 32 : S) : 256;
-  const int blocks = (S + threads - 1) / threads;
+  if (S == 0) return 0;
+  const int threads = ahead::THREADS;
+  const int blocks = (S + ahead::L - 1) / ahead::L;
   const size_t smem =
-      16 * size_t(NG) + sizeof(int32_t) * ((size_t(1) << depth) + 1);
+      16 * (size_t(ahead::TILE_ROWS) + NG) +
+      sizeof(int32_t) * ((size_t(1) << depth) + 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         encode_scan_grouped_kernel,

@@ -1,11 +1,10 @@
-// The lockstep decode step of K3 and K4, designed for Hopper: the byte
+// The lockstep decode step of K3, K4 and K5, designed for Hopper: the byte
 // reads of one step for the lanes of one block.
 //
-// What it computes is what lane::read_merge (common.cuh, kept for K5)
-// computes: a lane reads rc renorm bytes (round j < 3 holds every lane's
-// j-th one) and ne exception bytes (round 3 + j), each round's bytes lie in
-// lane order, and the rounds follow each other from the cursor.  What
-// differs is how:
+// What it computes: a lane reads rc renorm bytes (round j < 3 holds every
+// lane's j-th one) and ne exception bytes (round 3 + j), each round's bytes
+// lie in lane order, and the rounds follow each other from the cursor.
+// How:
 //
 //   * static round slots.  Three renorm and (NES = 3) three exception slots
 //     or (NES = 0) none; a round nobody reads in has count zero.  Nothing is
@@ -254,7 +253,8 @@ __device__ __forceinline__ void read_step(
   constexpr int NW = Rounds<NES>::NW;
   constexpr int G = LPT < 4 ? LPT : 4;  // lanes that share a window
   // The groups unroll fully up to 8 lanes a thread; the 16-lane instance
-  // (S = 16384) keeps its loops rolled, as lane::read_merge does.
+  // (S = 16384) keeps its loops rolled (fully unrolled, ptxas -O3 of CUDA 12.9
+  // gave code that read the later rounds' bytes at wrong positions).
   constexpr int GROUP_UNROLL = LPT <= 8 ? LPT / G : 1;
   uint32_t cnt[NW] = {};
 #pragma unroll GROUP_UNROLL

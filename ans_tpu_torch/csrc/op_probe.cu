@@ -38,17 +38,39 @@
 //                     (v >> 2r) & 3: v = v * 1664525 + 1 + the sum over the
 //                     rounds of this thread's byte offset + the step total
 //   11 scan_new       the same values from lockstep's packed scan
-//   12 read_old       one lockstep byte read by lane::read_merge: LPT lanes
-//                     a thread (4 at 1024 threads, else 1), rc = v & 3,
-//                     ne = (v >> 2) & 3; v = (st ^ low) * 2654435761 + 1
+//   12 read_old       one lockstep byte read as the decodes made it before
+//                     lockstep.cuh (read_merge below, kept here for the
+//                     comparison): LPT lanes a thread (4 at 1024 threads,
+//                     else 1), rc = v & 3, ne = (v >> 2) & 3;
+//                     v = (st ^ low) * 2654435761 + 1
 //   13 read_global    the same by lockstep::read_step on global loads
 //   14 read_ring      the same through the shared-memory ring
+//   16 encode_step    K6's state chain: one lane::encode_step a step, its
+//                     row [f, base, magic] read from a shared-memory tile at
+//                     an address the state does not enter; v is the state
+//                     (started at A_L | v & (A_L - 1)), and the final value
+//                     is the state plus the sum of the packed words
+//   17 group_search   K5's lookup: slot = v & (M-1); the bucket load,
+//                     `levels` probes, the group row, the divide and the
+//                     per-rank table load; v = ((f * (v >> log2m) + x - j*f)
+//                     ^ table[rank]) * 2654435761 + 1
 #include "lockstep.cuh"
 
 namespace {
 
 constexpr int UNROLL = 16;
 constexpr uint32_t GOLD = 2654435761u;
+
+// The grouped frame of chain 17 (K5's tables) and the row tile of chain 16.
+struct Grouped {
+  const int4* groups;       // (NG, 4) rows [f, magic, slot0, rank0]
+  const int32_t* bases;     // the groups' first slots
+  const uint16_t* buckets;  // ((M - 1 >> shift) + 1,)
+  const int32_t* table;     // (sigma,) per-rank value
+  int NG, levels, shift, sigma, log2m;
+  const int4* enc_rows;     // (enc_count, 4) rows [f, base, magic, 0]
+  int enc_count, enc_log2m;
+};
 
 struct Args {
   const uint32_t* x;
@@ -62,7 +84,72 @@ struct Args {
   uint32_t p0, p1, ring_bytes;
   int iters;
   long long* cycles;
+  Grouped g;
 };
+
+// The byte reads of one lockstep decode step as K3-K5 made them before
+// lockstep.cuh: rc[l] renorm bytes (round j < NR holds every lane's j-th
+// one) and ne[l] exception bytes (round NR + j); each round's block-wide
+// exclusive scan (two barriers) gives a lane its rank, and its byte sits at
+// cursor + (the earlier rounds' totals) + rank: one conditional global byte
+// load per lane and round.  A read at or past stream_len sets `bad` and
+// reads 0.  Returns the cursor after the step.
+template <int LPT>
+__device__ __forceinline__ int64_t read_merge(
+    const uint8_t* __restrict__ stream, int64_t stream_len, int64_t cursor,
+    int NR, int NE, const int (&rc)[LPT], const int (&ne)[LPT],
+    uint32_t (&st)[LPT], uint32_t (&low)[LPT], bool& bad,
+    lane::ScanScratch& s) {
+  constexpr int MAX_ROUNDS = lane::MAX_ROUNDS;
+  int cnt[MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NR) cnt[j] += rc[l] > j;
+      if (j < NE) cnt[NR + j] += ne[l] > j;
+    }
+  }
+  int excl[MAX_ROUNDS], tot[MAX_ROUNDS];
+  lane::block_exclusive_scan(NR + NE, cnt, excl, tot, s);
+
+  // stream position of this thread's next byte in each round
+  int64_t pos[MAX_ROUNDS];
+  int64_t base = cursor;
+#pragma unroll
+  for (int r = 0; r < MAX_ROUNDS; ++r) {
+    if (r < NR + NE) {
+      pos[r] = base + excl[r];
+      base += tot[r];
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) {
+    uint32_t v = st[l];
+    uint32_t lo = 0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NR && rc[l] > j) {
+        const int64_t p = pos[j]++;
+        const bool in = p < stream_len;
+        bad |= !in;
+        v = (v << 8) | (in ? stream[p] : 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < NE && ne[l] > j) {
+        const int64_t p = pos[NR + j]++;
+        const bool in = p < stream_len;
+        bad |= !in;
+        lo = (lo << 8) | (in ? stream[p] : 0u);
+      }
+    }
+    st[l] = v;
+    low[l] = lo;
+  }
+  return base;
+}
 
 template <int CHAIN>
 __device__ __forceinline__ uint32_t op(uint32_t v, const Args& a,
@@ -209,7 +296,7 @@ __global__ void __launch_bounds__(1024) read_kernel(Args a) {
       ne[l] = (v[l] >> 2) & 3u;
     }
     if constexpr (HOW == 0) {
-      cursor = lane::read_merge<LPT>(a.buf, a.buf_len, cursor, 3, 3, rc, ne,
+      cursor = read_merge<LPT>(a.buf, a.buf_len, cursor, 3, 3, rc, ne,
                                      v, low, bad, old_scratch[i & 1]);
     } else {
       uint32_t need[2][LPT];
@@ -232,6 +319,82 @@ __global__ void __launch_bounds__(1024) read_kernel(Args a) {
     a.cycles[0] = t0;
     a.cycles[1] = t1;
     a.cycles[2] = bad;
+  }
+}
+
+// chain 16: K6's state chain, its rows in a shared-memory tile
+__global__ void __launch_bounds__(1024) encode_kernel(Args a) {
+  extern __shared__ int4 smem[];
+  int4* rows = smem;  // enc_count
+  for (int i = threadIdx.x; i < a.g.enc_count; i += blockDim.x)
+    rows[i] = a.g.enc_rows[i];
+  uint32_t st = lane::A_L | (a.x[threadIdx.x] & (lane::A_L - 1));
+  uint32_t words = 0;
+  __syncthreads();
+  const long long t0 = clock64();
+  const int steps = a.iters * UNROLL;
+  // enc_count is a power of two and a multiple of the block: the row of
+  // (step, thread), neighbours side by side as in K6's tile
+  uint32_t at = threadIdx.x;
+  for (int i = 0; i < steps; ++i) {
+    const int4 row = rows[at & (a.g.enc_count - 1)];
+    words += lane::encode_step(st, static_cast<uint32_t>(row.x),
+                               static_cast<uint32_t>(row.y),
+                               static_cast<uint32_t>(row.z), a.g.enc_log2m);
+    at += blockDim.x;
+  }
+  const long long t1 = clock64();
+  a.out[threadIdx.x] = st + words;
+  if (threadIdx.x == 0) {
+    a.cycles[0] = t0;
+    a.cycles[1] = t1;
+  }
+}
+
+// chain 17: K5's lookup, its tables in shared memory
+__global__ void __launch_bounds__(1024) group_kernel(Args a) {
+  extern __shared__ int4 smem[];
+  const Grouped& g = a.g;
+  const uint32_t M = 1u << g.log2m;
+  const int nbounds = g.NG + (1 << g.levels);
+  const int nbuckets = static_cast<int>((M - 1) >> g.shift) + 1;
+  int4* groups = smem;
+  int32_t* bases = reinterpret_cast<int32_t*>(groups + g.NG);
+  int32_t* table = bases + nbounds;
+  uint16_t* buckets = reinterpret_cast<uint16_t*>(table + g.sigma);
+  for (int i = threadIdx.x; i < g.NG; i += blockDim.x) groups[i] = g.groups[i];
+  for (int i = threadIdx.x; i < nbounds; i += blockDim.x)
+    bases[i] = i < g.NG ? g.bases[i] : static_cast<int32_t>(M);
+  for (int i = threadIdx.x; i < g.sigma; i += blockDim.x)
+    table[i] = g.table[i];
+  for (int i = threadIdx.x; i < nbuckets; i += blockDim.x)
+    buckets[i] = g.buckets[i];
+  uint32_t v = a.x[threadIdx.x];
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < a.iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const uint32_t slot = v & (M - 1);
+      int m = buckets[slot >> g.shift];
+      for (int bit = (1 << g.levels) >> 1; bit > 0; bit >>= 1) {
+        const int probe = m + bit;
+        m = slot >= static_cast<uint32_t>(bases[probe]) ? probe : m;
+      }
+      const int4 r = groups[m];
+      const uint32_t f = static_cast<uint32_t>(r.x);
+      const uint32_t x = slot - static_cast<uint32_t>(r.z);
+      const uint32_t j = f == 1 ? x : lane::gm_div(x, f, r.y);
+      const uint32_t rank = static_cast<uint32_t>(r.w) + j;
+      const uint32_t s0 = f * (v >> g.log2m) + (x - j * f);
+      v = (s0 ^ static_cast<uint32_t>(table[rank])) * GOLD + 1u;
+    }
+  }
+  const long long t1 = clock64();
+  a.out[threadIdx.x] = v;
+  if (threadIdx.x == 0) {
+    a.cycles[0] = t0;
+    a.cycles[1] = t1;
   }
 }
 
@@ -261,23 +424,38 @@ cudaError_t run_read(const Args& a, int threads, cudaStream_t cs) {
 // 1024 threads, else 1); tab: (4096,) i32; slot_sym: (2^log2m,) u16; rows:
 // (sigma, 4) i32; buf: (buf_len,) u8; cycles: (3,) i64 (clock before, clock
 // after, whether a read passed the end of buf).  ring_bytes: chain 14's
-// ring, a power of two >= 2 * threads * LPT * 6 + 16.  Returns the
-// launch's cudaError_t.
+// ring, a power of two >= 2 * threads * LPT * 6 + 16.  Chain 17 reads K5's
+// tables of one grouped frame (g_groups (g_NG, 4) i32, g_bases g_NG i32,
+// g_buckets u16, g_table (g_sigma,) i32; g_levels, g_shift, g_log2m as
+// decode_grouped takes them); chain 16 reads enc_rows, (enc_count, 4) i32
+// rows [f, base, magic, 0] of a frame of 2^enc_log2m slots, enc_count a
+// power of two >= threads.  Returns the launch's cudaError_t.
 extern "C" int op_probe(int chain, int threads, int iters, const void* x,
                         void* out, const void* tab, const void* slot_sym,
                         const void* rows, int sigma, int log2m,
                         const void* buf, int64_t buf_len, unsigned p0,
                         unsigned p1, int ring_bytes, void* cycles,
+                        const void* g_groups, const void* g_bases,
+                        const void* g_buckets, const void* g_table, int g_NG,
+                        int g_levels, int g_shift, int g_sigma, int g_log2m,
+                        const void* enc_rows, int enc_count, int enc_log2m,
                         void* cuda_stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 || iters < 0)
+  if (threads < 32 || threads > 1024 || threads % 32 || iters < 0 ||
+      enc_count < threads || (enc_count & (enc_count - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Grouped g{static_cast<const int4*>(g_groups),
+                  static_cast<const int32_t*>(g_bases),
+                  static_cast<const uint16_t*>(g_buckets),
+                  static_cast<const int32_t*>(g_table), g_NG, g_levels,
+                  g_shift, g_sigma, g_log2m,
+                  static_cast<const int4*>(enc_rows), enc_count, enc_log2m};
   const Args a{static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
                static_cast<const uint32_t*>(tab),
                static_cast<const uint16_t*>(slot_sym),
                static_cast<const int4*>(rows), sigma, log2m,
                static_cast<const uint8_t*>(buf), buf_len, p0, p1,
                static_cast<uint32_t>(ring_bytes), iters,
-               static_cast<long long*>(cycles)};
+               static_cast<long long*>(cycles), g};
   const cudaStream_t cs = static_cast<cudaStream_t>(cuda_stream);
   const size_t lookup = 16 * size_t(sigma) + 2 * (size_t(1) << log2m);
   cudaError_t e;
@@ -298,6 +476,17 @@ extern "C" int op_probe(int chain, int threads, int iters, const void* x,
     case 13: e = run_read<1>(a, threads, cs); break;
     case 14: e = run_read<2>(a, threads, cs); break;
     case 15: e = run(scalar_kernel<15>, a, threads, 0, cs); break;
+    case 16: e = run(encode_kernel, a, threads, 16 * size_t(enc_count), cs);
+      break;
+    case 17: {
+      const size_t nbuckets = (((size_t(1) << g_log2m) - 1) >> g_shift) + 1;
+      e = run(group_kernel, a, threads,
+              16 * size_t(g_NG) +
+                  4 * (size_t(g_NG) + (size_t(1) << g_levels) + g_sigma) +
+                  2 * nbuckets,
+              cs);
+      break;
+    }
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -45,12 +45,15 @@ def choose_decode_engine(table, S: int) -> str:
     (ans_tpu_torch/bench_crossover.py; PERF.md has the table) K4 took
     0.20-0.81 of K3's time on every value-order frame that fits (sigma 16
     to 8192, M 2^8 to 2^16; 0.44 on ANSfold-2's main path, 0.49 on
-    AnsByte) and 0.29-0.38 of K5's on the grouped frames that fit, at
-    S = 4096, and 0.27-0.63 at S = 32: two dependent shared-memory loads
-    against the search's chain of probes, or the grouped engine's search
-    plus divide.  A frame whose tables leave K4 no room for the stream's
-    ring (ops.decode.choose_instance) still decodes faster on K4's
-    global-load instance than on K3 with its ring."""
+    AnsByte) at S = 4096, and 0.55-0.64 at S = 32: two dependent
+    shared-memory loads against the search's chain of probes.  A frame
+    whose tables leave K4 no room for the stream's ring
+    (ops.decode.choose_instance) still decodes faster on K4's global-load
+    instance than on K3 with its ring.  Against K5 the margin is gone
+    since K5 took the same step and a bucket search: K4 took 0.91 of
+    K5's time on the grouped frame whose ring fits beside K4's tables
+    (0.84 at S = 32) and 1.10-1.12 on the two where it does not; the rule
+    was derived before that and has not been moved."""
     del S  # the order of the engines held at both lane counts measured
     engines = eligible_engines(table)
     return "direct" if "direct" in engines else engines[0]

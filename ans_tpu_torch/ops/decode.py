@@ -6,8 +6,8 @@ wrappers.
 Replace ans_tpu/ops/pallas_decode.py `stage_search` + `_call_search`,
 `stage` + `_call` and `stage_grouped` + `_call_grouped`.
 
-K3 and K4 have two instances each (csrc/lockstep.cuh): "ring" stages the
-stream in a shared-memory ring ahead of the cursor, "global" reads it
+The three have two instances each (csrc/lockstep.cuh): "ring" stages
+the stream in a shared-memory ring ahead of the cursor, "global" reads it
 from device memory.  The wrapper takes "ring" wherever the ring fits the
 block's shared memory beside the tables (`choose_instance`);
 `instance_launches` counts each."""
@@ -29,10 +29,11 @@ launches = 0
 direct_launches = 0
 grouped_launches = 0
 
-# launches of K3 and K4 by instance (each also counts in `launches` /
-# `direct_launches`)
+# launches by instance (each also counts in `launches` / `direct_launches`
+# / `grouped_launches`)
 instance_launches = {"decode_search": {"ring": 0, "global": 0},
-                     "decode_direct": {"ring": 0, "global": 0}}
+                     "decode_direct": {"ring": 0, "global": 0},
+                     "decode_grouped": {"ring": 0, "global": 0}}
 
 # the kernels keep LPT = S/1024 lane states per thread in registers and
 # are compiled for LPT <= 16
@@ -40,7 +41,7 @@ MAX_LANES = 1 << 14
 
 INSTANCES = ("ring", "global")
 
-# K3 and K4 keep 32-bit stream offsets
+# the kernels keep 32-bit stream offsets
 MAX_STREAM_BYTES = (1 << 31) - 1
 
 
@@ -96,11 +97,11 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
     tensors = (stream, states, table.bases, table.high, table.nb)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_search_plain(stream, states, table, n, T)
-    dev = build.require_cuda("decode_search", *tensors)
     S = _lanes("decode_search", states, stream)
     which, ring = choose_instance(
         "decode_search", 4 * (table.bases.numel() + 2 * table.sigma), S,
         table.NR + table.NE, instance)
+    dev = build.require_cuda("decode_search", *tensors)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_search", _ARGTYPES)
@@ -140,10 +141,10 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
     tensors = (stream, states, table.slot_sym, table.rows)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_direct_plain(stream, states, table, n, T)
-    dev = build.require_cuda("decode_direct", *tensors)
     S = _lanes("decode_direct", states, stream)
     which, ring = choose_instance("decode_direct", smem, S,
                                   table.NR + table.NE, instance)
+    dev = build.require_cuda("decode_direct", *tensors)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_direct", _DIRECT_ARGTYPES)
@@ -159,37 +160,58 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
 
 
 _GROUPED_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
-                     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int,
+                     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                      ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                     ct.c_int64, ct.c_int, ct.c_int, ct.c_void_p,
-                     ct.c_void_p, ct.c_void_p]
+                     ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int,
+                     ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
+                     ct.c_void_p]
+
+
+def grouped_shared_tables(table: GroupedDecDevice) -> tuple[bool, int]:
+    """(whether K5 stages the per-rank table and nb in shared memory, the
+    bytes of shared memory its tables then take): the group tables always,
+    the per-rank table when both fit the block."""
+    small = table.group_bytes()
+    both = small + table.rank_table_bytes()
+    fits = both <= DIRECT_TABLE_BYTES
+    return fits, both if fits else small
 
 
 def decode_grouped(stream: torch.Tensor, states: torch.Tensor,
-                   table: GroupedDecDevice, n: int, T: int) -> torch.Tensor:
+                   table: GroupedDecDevice, n: int, T: int,
+                   instance: str | None = None) -> torch.Tensor:
     """Decode T lockstep steps of a frequency-grouped frame; arguments,
-    result and errors as decode_search.  CPU tensors run the plain
+    result and errors as decode_search.  The per-rank table goes to
+    shared memory when it fits (grouped_shared_tables), and the stream's
+    ring when it fits beside what is there.  CPU tensors run the plain
     version (lane_codec.decode_grouped_plain); CUDA tensors launch the
-    kernel."""
+    kernel, in the instance choose_instance picks (`instance` forces
+    one)."""
     global grouped_launches
     _check_inputs("decode_grouped", stream, states)
-    tensors = (stream, states, table.groups, table.bases, table.table,
-               table.nb)
+    tensors = (stream, states, table.groups, table.bases, table.buckets,
+               table.table, table.nb)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_grouped_plain(stream, states, table, n, T)
+    S = _lanes("decode_grouped", states, stream)
+    smem_table, smem = grouped_shared_tables(table)
+    which, ring = choose_instance("decode_grouped", smem, S,
+                                  table.NR + table.NE, instance)
     dev = build.require_cuda("decode_grouped", *tensors)
-    S = _lanes("decode_grouped", states)
     out = torch.empty((T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_grouped", _GROUPED_ARGTYPES)
     build.check("decode_grouped", fn(
         build.ptr(stream), stream.numel(), build.ptr(states),
         build.ptr(table.groups), build.ptr(table.bases),
+        build.ptr(table.buckets),
         build.ptr(table.table) if table.table.numel() else None,
         build.ptr(table.nb) if table.NE else None, table.groups.shape[0],
-        table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
-        build.ptr(out), build.ptr(err), build.current_stream(dev)))
+        table.levels, table.shift, table.sigma, table.log2m, table.NR,
+        table.NE, n, T, S, ring, int(smem_table), build.ptr(out),
+        build.ptr(err), build.current_stream(dev)))
     grouped_launches += 1
+    instance_launches["decode_grouped"][which] += 1
     _raise_on(err)
     return out
 
@@ -202,9 +224,10 @@ def _check_inputs(name: str, stream: torch.Tensor,
         raise ValueError(f"{name}: states must be a 1-d int32 tensor")
 
 
-def _lanes(name: str, states: torch.Tensor,
-           stream: torch.Tensor | None = None) -> int:
-    if stream is not None and stream.numel() > MAX_STREAM_BYTES:
+def _lanes(name: str, states: torch.Tensor, stream: torch.Tensor) -> int:
+    """The lane count of a launch, after the checks that need no card:
+    the kernels' limits on the stream's length and on S."""
+    if stream.numel() > MAX_STREAM_BYTES:
         raise NotImplementedError(
             f"{name}: a stream of {stream.numel()} bytes; the kernel takes "
             f"at most {MAX_STREAM_BYTES}")

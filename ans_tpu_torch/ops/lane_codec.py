@@ -220,6 +220,24 @@ def decode_grouped_plain(stream: torch.Tensor, states: torch.Tensor,
     return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
 
 
+def bucket_search(table: GroupedDecDevice,
+                  slot: torch.Tensor) -> torch.Tensor:
+    """The group of each slot (int64) by the short search K5 runs: the
+    bucket's first group, then table.levels probes m + bit over the NG
+    boundaries padded with M.  decode_grouped_plain keeps the full search;
+    this is the kernel's, for the tests that hold the two equal."""
+    NG = table.groups.shape[0]
+    bounds = torch.cat([
+        table.bases[:NG].to(torch.int64),
+        torch.full((1 << table.levels,), table.frame_size,
+                   dtype=torch.int64, device=slot.device)])
+    m = table.buckets.to(torch.int64)[slot >> table.shift] & 0xFFFF
+    for k in range(table.levels - 1, -1, -1):
+        probe = m + (1 << k)
+        m = torch.where(slot >= bounds[probe], probe, m)
+    return m
+
+
 def decode_direct_plain(stream: torch.Tensor, states: torch.Tensor,
                         table: DirectDevice, n: int, T: int) -> torch.Tensor:
     """Plain version of K4 (csrc/decode_direct.cu): lockstep decode with

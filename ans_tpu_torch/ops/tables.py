@@ -377,7 +377,10 @@ class GroupedDecDevice:
     laid out like SearchDevice.bases and padded with M; table: (sigma,)
     i32 per-rank value or high part, or (0,) when the rank is the value;
     nb: (sigma,) u8 exception bytes per rank, or (0,) when NE = 0.  The
-    decoded value is table[rank] (or rank) + the nb exception bytes."""
+    decoded value is table[rank] (or rank) + the nb exception bytes.
+    buckets, shift, levels: the short search of the kernel (bucket_table):
+    buckets[slot >> shift] (i16 holding u16) is the group of the bucket's
+    first slot, and `levels` probes over the boundaries finish it."""
 
     groups: torch.Tensor
     bases: torch.Tensor
@@ -389,6 +392,41 @@ class GroupedDecDevice:
     log2m: int
     NR: int
     NE: int
+    buckets: torch.Tensor
+    shift: int
+    levels: int
+
+    def group_bytes(self) -> int:
+        """Shared memory K5 needs for the group rows, the boundaries its
+        search may probe and the buckets."""
+        NG = self.groups.shape[0]
+        return 16 * NG + 4 * (NG + (1 << self.levels)) \
+            + 2 * self.buckets.numel()
+
+    def rank_table_bytes(self) -> int:
+        """Bytes of the per-rank table and nb."""
+        return 4 * self.table.numel() + self.nb.numel()
+
+
+MAX_BUCKETS = 1024
+
+
+def bucket_table(bounds: np.ndarray, span: int):
+    """The top of a search over the sorted boundaries `bounds` (bounds[0]
+    = 0) for keys 0..span-1, as one load: (first, shift, levels) where
+    first[key >> shift] (u16, at most MAX_BUCKETS entries) is the last
+    boundary index at or below the bucket's first key, and at most
+    2^levels - 1 further boundaries lie inside any bucket, so `levels`
+    probes (m + bit, bit = 2^(levels-1) .. 1, over bounds padded with
+    span) end at the last boundary at or below the key."""
+    bounds = np.asarray(bounds, dtype=np.int64)
+    shift = max((span - 1).bit_length() - (MAX_BUCKETS - 1).bit_length(), 0)
+    starts = np.arange(((span - 1) >> shift) + 1, dtype=np.int64) << shift
+    ends = np.minimum(starts + (1 << shift), span) - 1
+    first = np.searchsorted(bounds, starts, side="right") - 1
+    last = np.searchsorted(bounds, ends, side="right") - 1
+    return (first.astype(np.uint16), shift,
+            int((last - first).max()).bit_length())
 
 
 def _group_rows(layout, device) -> torch.Tensor:
@@ -414,6 +452,7 @@ def _grouped_to_device(gt: GroupedTable, device) -> GroupedDecDevice:
     table = gt.high if gt.high is not None else gt.val
     NE = int(np.max(gt.nb)) if gt.nb is not None else 0
     nb = np.asarray(gt.nb if NE else np.zeros(0), dtype=np.uint8)
+    first, shift, levels = bucket_table(lay.g_slot0, int(lay.frame_size))
     return GroupedDecDevice(
         groups=_group_rows(lay, device),
         bases=_i32(_bases(lay.slot_pivots, lay.slot_depth, lay.frame_size),
@@ -422,4 +461,6 @@ def _grouped_to_device(gt: GroupedTable, device) -> GroupedDecDevice:
         nb=torch.from_numpy(nb.copy()).to(device),
         depth=int(lay.slot_depth), sigma=int(lay.sigma),
         frame_size=int(lay.frame_size), log2m=int(lay.log2m),
-        NR=max_renorm_rounds(int(lay.log2m)), NE=NE)
+        NR=max_renorm_rounds(int(lay.log2m)), NE=NE,
+        buckets=torch.from_numpy(first.view(np.int16).copy()).to(device),
+        shift=shift, levels=levels)

@@ -33,12 +33,16 @@ import numpy as np
 import torch
 
 from .csrc import build
+from .ops import lane_codec, tables
 
 UNROLL = 16
 MASK = 0xFFFFFFFF
 GOLD = 2654435761
 SIGMA, LOG2M = 1546, 15     # K4's tables on the ANSfold-2 main path: 89 KB
 TAB = 4096
+G_SIGMA, G_LOG2M = 20000, 17    # a grouped frame the size of ANSfold-7's on
+                                # 2^20-value data: K5's tables, 92 KB
+ENC_ROWS = 4096                 # rows of the encode chain's tile, 64 KB
 
 # launches of the probe kernel (never counts a plain chain)
 launches = 0
@@ -47,7 +51,7 @@ launches = 0
 @dataclass(frozen=True)
 class Chain:
     index: int      # the kernel's `chain` argument
-    kind: str       # "scalar", "scan" or "read"
+    kind: str       # "scalar", "scan", "read", "encode" or "group"
     p0: int = 0
     p1: int = 0
     what: str = ""
@@ -78,12 +82,19 @@ CHAINS = {
                                        "rounds, two barriers"),
     "scan_new": Chain(11, "scan", what="lockstep's packed scan, six rounds, "
                                        "one barrier"),
-    "read_old": Chain(12, "read", what="lane::read_merge: scan + "
-                                       "conditional global byte loads"),
+    "read_old": Chain(12, "read", what="the byte read before lockstep.cuh: "
+                                       "six scans + conditional global "
+                                       "byte loads"),
     "read_global": Chain(13, "read", what="lockstep::read_step on global "
                                           "loads"),
     "read_ring": Chain(14, "read", what="lockstep::read_step through the "
                                         "shared-memory ring"),
+    "encode_step": Chain(16, "encode", what="K6's state chain: "
+                                            "lane::encode_step, its row in "
+                                            "a shared-memory tile"),
+    "group_search": Chain(17, "group", what="K5's lookup: bucket, probes, "
+                                            "group row, divide, per-rank "
+                                            "table, 92 KB in shared memory"),
 }
 
 
@@ -97,12 +108,17 @@ def lanes_per_thread(threads: int) -> int:
 class Inputs:
     """What the chains read: tab (4096,) i32; slot_sym (2^log2m,) i16
     holding u16 indices below sigma; rows (sigma, 4) i32; buf (a power of
-    two,) u8, the global buffer of "gload_*" and the stream of "read_*"."""
+    two,) u8, the global buffer of "gload_*" and the stream of "read_*";
+    grouped: K5's tables of a frequency-grouped frame with a value table
+    ("group_search"); enc_rows (ENC_ROWS, 4) i32 rows [f, base, magic, 0]
+    of symbols drawn from that frame ("encode_step")."""
 
     tab: torch.Tensor
     slot_sym: torch.Tensor
     rows: torch.Tensor
     buf: torch.Tensor
+    grouped: tables.GroupedDecDevice
+    enc_rows: torch.Tensor
     sigma: int = SIGMA
     log2m: int = LOG2M
 
@@ -124,10 +140,23 @@ def make_inputs(device, buf_bytes: int, seed: int = 0) -> Inputs:
         gen = torch.Generator(device=dev).manual_seed(seed)
         buf = torch.randint(0, 256, (buf_bytes,), dtype=torch.uint8,
                             device=dev, generator=gen)
+    # Zipf(1) frequencies over G_SIGMA symbols in no order, summing to
+    # 2^G_LOG2M: a value table, a few hundred groups
+    w = 1.0 / np.arange(1, G_SIGMA + 1)
+    nf = 1 + np.floor(((1 << G_LOG2M) - G_SIGMA) * w / w.sum()).astype(
+        np.int64)
+    nf[0] += (1 << G_LOG2M) - int(nf.sum())
+    nf = rng.permutation(nf).astype(np.uint64)
+    enc = tables.to_device(tables.build_enc_table(nf), dev)
+    syms = rng.choice(G_SIGMA, size=ENC_ROWS, p=nf / nf.sum())
     return Inputs(tab=torch.from_numpy(tab.view(np.int32)).to(dev),
                   slot_sym=torch.from_numpy(slot.view(np.int16)).to(dev),
                   rows=torch.from_numpy(rows.view(np.int32)).to(dev),
-                  buf=buf)
+                  buf=buf,
+                  grouped=tables.to_device(tables.build_grouped_table(nf),
+                                           dev),
+                  enc_rows=enc.words[torch.from_numpy(syms).to(dev)]
+                  .contiguous())
 
 
 def make_x(name: str, threads: int, device, seed: int = 1) -> torch.Tensor:
@@ -164,6 +193,13 @@ def _check(name: str, x: torch.Tensor, iters: int, inp: Inputs) -> int:
             or inp.buf.numel() & (inp.buf.numel() - 1):
         raise ValueError("probe: buf must be a 1-d uint8 tensor, a power "
                          "of two long")
+    g = inp.grouped
+    if g.table.numel() != g.sigma or g.NE or g.log2m != G_LOG2M:
+        raise ValueError("probe: the grouped frame needs a value table, no "
+                         f"exception bytes and 2^{G_LOG2M} slots")
+    if inp.enc_rows.shape != (ENC_ROWS, 4) \
+            or inp.enc_rows.dtype != torch.int32:
+        raise ValueError(f"probe: enc_rows must be ({ENC_ROWS}, 4) int32")
     if CHAINS[name].kind == "read" \
             and iters * UNROLL * x.numel() * 6 > inp.buf.numel():
         raise ValueError(
@@ -250,6 +286,44 @@ def _read_op(v: torch.Tensor, cursor: int, buf: torch.Tensor):
     return ((st ^ lo) * GOLD + 1) & MASK, cursor
 
 
+def _encode_chain(x: torch.Tensor, steps: int,
+                  inp: Inputs) -> torch.Tensor:
+    """K6's state chain: the state starts at A_L | x & (A_L - 1); step i of
+    thread k takes row (k + i * threads) mod ENC_ROWS through
+    lane::encode_step; the state plus the sum of the packed words."""
+    rows = _u32(inp.enc_rows)
+    log2m = inp.grouped.log2m
+    k = torch.arange(x.numel(), device=x.device)
+    st = tables.A_L | (_u32(x) & (tables.A_L - 1))
+    words = torch.zeros_like(st)
+    for i in range(steps):
+        r = rows[(k + i * x.numel()) & (ENC_ROWS - 1)]
+        f, base = r[:, 0], r[:, 1]
+        ub = f << (31 - log2m)
+        word = torch.zeros_like(st)
+        for j in range(3):
+            e = st >= ub
+            word |= (st & 0xFF) << (8 * j)
+            word += e.to(torch.int64) << 24
+            st = torch.where(e, st >> 8, st)
+        q = st // f
+        st = (q << log2m) + (st - q * f) + base
+        words = (words + word) & MASK
+    return (st + words) & MASK
+
+
+def _group_op(v: torch.Tensor, g: tables.GroupedDecDevice) -> torch.Tensor:
+    """K5's lookup: the slot's group by the kernel's short search, the
+    in-group index by an exact division, the per-rank table."""
+    slot = v & (g.frame_size - 1)
+    row = _u32(g.groups)[lane_codec.bucket_search(g, slot)]
+    f = row[:, 0]
+    x = slot - row[:, 2]
+    j = x // f
+    s0 = f * (v >> g.log2m) + x - j * f
+    return ((s0 ^ _u32(g.table)[row[:, 3] + j]) * GOLD + 1) & MASK
+
+
 def run_plain(name: str, x: torch.Tensor, iters: int,
               inp: Inputs) -> torch.Tensor:
     """The chain's final values by plain tensor ops, on x's device:
@@ -257,13 +331,17 @@ def run_plain(name: str, x: torch.Tensor, iters: int,
     _check(name, x, iters, inp)
     c = CHAINS[name]
     v = _u32(x)
-    tables = {"tab": _u32(inp.tab), "rows": _u32(inp.rows),
-              "slot_sym": inp.slot_sym.to(torch.int64) & 0xFFFF,
-              "log2m": inp.log2m, "buf": inp.buf}
+    tabs = {"tab": _u32(inp.tab), "rows": _u32(inp.rows),
+            "slot_sym": inp.slot_sym.to(torch.int64) & 0xFFFF,
+            "log2m": inp.log2m, "buf": inp.buf}
     cursor = 0
-    for _ in range(iters * UNROLL):
-        if c.kind == "scalar":
-            v = _scalar_op(c, v, tables)
+    if c.kind == "encode":
+        v = _encode_chain(x, iters * UNROLL, inp)
+    for _ in range(0 if c.kind == "encode" else iters * UNROLL):
+        if c.kind == "group":
+            v = _group_op(v, inp.grouped)
+        elif c.kind == "scalar":
+            v = _scalar_op(c, v, tabs)
         elif c.kind == "scan":
             v = _scan_op(v)
         else:
@@ -278,7 +356,9 @@ def run_plain(name: str, x: torch.Tensor, iters: int,
 _ARGTYPES = [ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
              ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
              ct.c_void_p, ct.c_int64, ct.c_uint, ct.c_uint, ct.c_int,
-             ct.c_void_p, ct.c_void_p]
+             ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+             ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
+             ct.c_int, ct.c_int, ct.c_void_p]
 
 
 def _launch(name: str, x: torch.Tensor, iters: int, inp: Inputs):
@@ -286,8 +366,10 @@ def _launch(name: str, x: torch.Tensor, iters: int, inp: Inputs):
     clock before, clock after, read-past-the-end flag)."""
     global launches
     threads = _check(name, x, iters, inp)
+    g = inp.grouped
     dev = build.require_cuda("op_probe", x, inp.tab, inp.slot_sym, inp.rows,
-                             inp.buf)
+                             inp.buf, g.groups, g.bases, g.buckets, g.table,
+                             inp.enc_rows)
     c = CHAINS[name]
     out = torch.empty_like(x)
     cycles = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -300,7 +382,11 @@ def _launch(name: str, x: torch.Tensor, iters: int, inp: Inputs):
         c.index, threads, iters, build.ptr(x), build.ptr(out),
         build.ptr(inp.tab), build.ptr(inp.slot_sym), build.ptr(inp.rows),
         inp.sigma, inp.log2m, build.ptr(inp.buf), inp.buf.numel(), c.p0,
-        c.p1, ring, build.ptr(cycles), build.current_stream(dev)))
+        c.p1, ring, build.ptr(cycles), build.ptr(g.groups),
+        build.ptr(g.bases), build.ptr(g.buckets), build.ptr(g.table),
+        g.groups.shape[0], g.levels, g.shift, g.sigma, g.log2m,
+        build.ptr(inp.enc_rows), ENC_ROWS, g.log2m,
+        build.current_stream(dev)))
     launches += 1
     return out, cycles
 
@@ -347,7 +433,8 @@ def time_chain(name: str, threads: int, iters: int, inp: Inputs,
 
 
 # depth of the timed chains relative to --iters: the slow chains run fewer
-DEPTH = {"scalar": 1.0, "scan": 0.25, "read": 1 / 16}
+DEPTH = {"scalar": 1.0, "scan": 0.25, "read": 1 / 16, "encode": 0.25,
+         "group": 0.25}
 SLOW = {"gload_l2": 1 / 8, "gload_dram": 1 / 8, "syncthreads": 0.25}
 
 

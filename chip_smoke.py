@@ -17,13 +17,13 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      once;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
      version on the same inputs (S = 4096 at n = 2^20 and S = 32 at
-     n = 2^19, 16384 steps: K1-K4 on
+     n = 2^18, 8192 steps: K1-K4 on
      ANSfold-2 and on AnsByte's frame, K5/K6 on ANSfold-7 (in-kernel symbol
      -> rank map, high/nb table), on ANS without the escape (ranks, value
      table), on a frame whose ranks are its values, and with K4 on a
      grouped frame small enough for its per-slot table; K7-K9 on values of
-     every byte length; then K1-K4 on the main path's arrays); K3 and K4
-     run in the instance their wrapper picks (the stream staged in a
+     every byte length; then K1-K4 on the main path's arrays); K3, K4 and
+     K5 run in the instance their wrapper picks (the stream staged in a
      shared-memory ring) and once more forced onto global loads, and a
      frame whose tables leave the ring no room takes that instance by
      itself; all integer, so the tolerance is zero.  Kernel and plain times
@@ -55,7 +55,7 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      K9 / K8 on decode; the AnsByte prepared decode timed under "direct"
      and under "search".
   Phases 5-8 then hold their kernels against the plain versions at their
-  own shapes and time both.
+  own shapes (K5 in both instances) and time both.
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
 probe's on its own run; its time, its plain version's, and its bound: the larger of the bytes it must
@@ -120,12 +120,13 @@ KERNELS = {
 PROBE_COMPARE_ITERS, PROBE_RUN_ITERS = 2, 256
 
 # integer operations per item, counted from each kernel's source: per
-# (lane, step) for the lane kernels (`depth` is the search's), per element
-# for K7 and K8, per stream byte for K9
+# (lane, step) for the lane kernels (d: the probes of this frame's search:
+# the full depth for K3 and K6, the levels behind the bucket load for K5),
+# per element for K7 and K8, per stream byte for K9
 # (the probe has no entry: it has no work bound)
-OPS = {"encode_scan": lambda d: 30, "encode_scan_grouped": lambda d: 4 * d + 35,
+OPS = {"encode_scan": lambda d: 30, "encode_scan_grouped": lambda d: 4 * d + 51,
        "place": lambda d: 30, "decode_search": lambda d: 4 * d + 30,
-       "decode_direct": lambda d: 30, "decode_grouped": lambda d: 4 * d + 45,
+       "decode_direct": lambda d: 30, "decode_grouped": lambda d: 4 * d + 55,
        "bytesplit_encode": lambda d: 20, "svb_decode": lambda d: 15,
        "vbyte_decode": lambda d: 10}
 
@@ -258,12 +259,11 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            # mangled: <length><name>, then ILi<n>E for a template int
-            # and Lb<0|1>E for a template bool
-            k = re.search(
-                r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?",
-                m.group(1))
-            args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+            # mangled: <length><name>, then I, Li<n>E for each template
+            # int and Lb<0|1>E for each template bool, E
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(I(?:L[ib]\d+E)+E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
             fn = (k.group(1) + (f"<{','.join(args)}>" if args else "")
                   if k else m.group(1))
         elif "registers" in line or "spill" in line:
@@ -345,9 +345,9 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
     res[dec[0]] = {"max_abs_err": compare(
         dec[0], where, got,
         plain(dec[0], dec[2], *dargs) if use_plain else out)}
-    if not timed and not grouped:
-        compare("decode_search on global loads", where,
-                decode.decode_search(*dargs, instance="global"), got)
+    if grouped or not timed:
+        compare(f"{dec[0]} on global loads", where,
+                dec[1](*dargs, instance="global"), got)
     kernels[dec[0]] = lambda: dec[1](*dargs)
 
     if timed:
@@ -363,9 +363,10 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
         for name, kern in kernels.items():
             res[name]["ms"] = cuda_ms(kern)
             res[name]["plain_ms"] = plain_ms.get(name)
-            depth = (st.enc if name == scan[0] else st.dec)
-            res[name].update(bound(name, moved[name], items,
-                                   getattr(depth, "depth", 0)))
+            tab = st.enc if name == scan[0] else st.dec
+            res[name].update(bound(
+                name, moved[name], items,
+                getattr(tab, "levels", getattr(tab, "depth", 0))))
     return res
 
 
@@ -545,6 +546,9 @@ def reset_launches() -> None:
     for _, _, counter in KERNELS.values():
         mod, attr = counter.split(".")
         setattr(mods[mod], attr, 0)
+    for counts in mods["decode"].instance_launches.values():
+        for instance in counts:
+            counts[instance] = 0
 
 
 def read_launches() -> dict:
@@ -557,8 +561,15 @@ def read_launches() -> dict:
 
 
 def require_launched(what: str, launches: dict, kernels) -> None:
+    """Every kernel's counter moved, and for the lockstep decodes the
+    counters of their instances add up to it."""
+    by_instance = counter_modules()["decode"].instance_launches
     for kernel in kernels:
         require(launches[kernel] > 0, f"{what} never launched {kernel}")
+        if kernel in by_instance:
+            require(sum(by_instance[kernel].values()) == launches[kernel],
+                    f"{what}: {kernel} launched {launches[kernel]} times, "
+                    f"its instances {by_instance[kernel]}")
 
 
 ENCODE_PATH = {"search": ("encode_scan", "place"),
@@ -608,6 +619,9 @@ def run_codec(card: str, name: str, x: np.ndarray, rec: dict,
     require_launched(f"{name} on the {engine} engine", r["launches"], (
         *ENCODE_PATH[layout], DECODE_KERNEL[engine],
         *((DECODE_KERNEL[also],) if also else ())))
+    from ans_tpu_torch.ops import decode
+    print(f"{card} {name}: {DECODE_KERNEL[engine]} by instance: "
+          f"{decode.instance_launches[DECODE_KERNEL[engine]]}")
     print(f"{card} {name}: {len(blob)} bytes, {8 * len(blob) / n:.4f} bpi, "
           f"sha256 {sha256(blob)[:12]}, engine {engine}; e2e (host "
           f"clock, host data) encode {e2e_enc:.3f} s, decode "
@@ -719,7 +733,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     errs = {}
-    for lanes, log2n in ((32, 19), (4096, 20)):
+    for lanes, log2n in ((32, 18), (4096, 20)):
         n2 = 1 << log2n
         z20 = zipf20_input(n2)
         for what, st in (
@@ -758,7 +772,8 @@ def main() -> int:
     for kernel, counts in decode.instance_launches.items():
         require(min(counts.values()) > 0,
                 f"{kernel} did not run in both instances: {counts}")
-    print(f"instances of K3 / K4 launched so far: {decode.instance_launches}")
+    print(f"instances of K3 / K4 / K5 launched so far: "
+          f"{decode.instance_launches}")
 
     # 2b. the step probe
     pres = check_probe(card)

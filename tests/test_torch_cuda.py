@@ -11,10 +11,12 @@ three renorm rounds, three exception bytes, corrupt streams, and for the
 grouped kernels K5/K6 one-group frames, ~2^12 groups, per-rank tables too
 large for shared memory and out-of-range ranks; for the direct kernel K4
 tables past 48 KB, both slot orders and frames that do not fit; for the
-two instances of K3 and K4 (the stream staged in a shared-memory ring, or
-read from device memory) every lane count, streams shorter than one
+two instances of K3, K4 and K5 (the stream staged in a shared-memory ring,
+or read from device memory) every lane count, streams shorter than one
 16-byte granule, payloads at odd addresses, truncated streams and a frame
-that leaves the ring no room; for the byte splitters K7-K9 every element
+that leaves the ring no room; for K6 scans that end inside a tile of
+steps, inside a row of lanes and inside a block of lanes; for the byte
+splitters K7-K9 every element
 length, ragged sizes and corrupt streams; for the step probe every chain
 against its plain version.
 """
@@ -173,7 +175,8 @@ def test_golden_fixture_on_card(cuda, rec):
 # --------------------------------------------------------------------------
 
 def _grouped_run(m_ts, nb_ts, ex_ts, n, enc, dec):
-    """K6, K2 and K5 against their plain versions on the same tensors."""
+    """K6, K2 and K5 (in the instance its wrapper picks, and on global
+    loads) against their plain versions on the same tensors."""
     T = m_ts.shape[0]
     counts = (encode.grouped_launches, decode.grouped_launches)
     packed, states = encode.encode_scan_grouped(m_ts, n, enc)
@@ -184,8 +187,10 @@ def _grouped_run(m_ts, nb_ts, ex_ts, n, enc, dec):
     out = decode.decode_grouped(stream, states, dec, n, T)
     assert torch.equal(out, lane_codec.decode_grouped_plain(stream, states,
                                                             dec, n, T))
-    assert (encode.grouped_launches, decode.grouped_launches) == tuple(
-        c + 1 for c in counts)
+    assert torch.equal(out, decode.decode_grouped(stream, states, dec, n, T,
+                                                  instance="global"))
+    assert (encode.grouped_launches, decode.grouped_launches) == (
+        counts[0] + 1, counts[1] + 2)
     return out.cpu().numpy().view(np.uint32).reshape(-1)[:n], stream, states
 
 
@@ -321,6 +326,150 @@ def test_grouped_corrupt_stream_and_rank_raise(cuda):
     bad[1, 5] = len(lay.rank_of)
     with pytest.raises(ValueError, match="outside"):
         encode.encode_scan_grouped(bad, 64, byval)
+
+
+@pytest.mark.parametrize("S", [1, 32, 4096, 16384])
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_grouped_instances_match_plain(cuda, S, instance):
+    """K5 through each instance on ANSfold-8 over more than 2^13 live
+    symbols, with exception rounds (wide values: NE = 3) wherever the ring
+    can hold six rounds beside the tables; where it cannot, forcing it
+    raises and the ring is held on the renorm rounds alone."""
+    n = max(20000, 20 * S + 7)
+    rng = np.random.default_rng(S + 3)
+    small = rng.integers(0, 12000, size=n).astype(np.uint32)
+    big = rng.integers(1 << 25, 1 << 32, size=n, dtype=np.uint64)
+    x = np.where(rng.random(n) < 0.2, big, small).astype(np.uint32)
+    T = lane_codec.lane_steps(n, S)
+    (out, stream, states), dec = _codec_run(AnsFold(8, device=cuda), x, S,
+                                            cuda)
+    assert dec.NE == 3
+    fits = decode.choose_instance(
+        "decode_grouped", decode.grouped_shared_tables(dec)[1], S,
+        dec.NR + dec.NE)[0] == "ring"
+    assert fits or S > 32  # a ring of 1 KB fits beside any tables
+    if instance == "ring" and not fits:
+        with pytest.raises(ValueError, match="does not fit"):
+            decode.decode_grouped(stream, states, dec, n, T, instance="ring")
+        x = small
+        (out, stream, states), dec = _codec_run(AnsFold(8, device=cuda), x,
+                                                S, cuda)
+        assert dec.NE == 0
+    np.testing.assert_array_equal(out, x)
+    before = decode.instance_launches["decode_grouped"][instance]
+    got = decode.decode_grouped(stream, states, dec, n, T, instance=instance)
+    assert decode.instance_launches["decode_grouped"][instance] == before + 1
+    assert torch.equal(got, lane_codec.decode_grouped_plain(stream, states,
+                                                            dec, n, T))
+
+
+def _small_grouped_freqs(seed=6):
+    """9000 symbols of frequency 1 or 2 in no order, M = 2^14."""
+    f = np.ones(9000, np.int64)
+    f[:7384] = 2
+    return np.random.default_rng(seed).permutation(f).astype(np.uint64)
+
+
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_grouped_short_and_odd_streams(cuda, instance):
+    """K5 on a stream shorter than one 16-byte granule, on payloads that
+    start at every odd byte offset inside a granule, and on streams whose
+    last bytes are missing."""
+    nf = _small_grouped_freqs()
+    _, dec, stream, states, T, _ = _frame_run(nf, 1, cuda, n=6)
+    assert 0 < stream.numel() < 16
+    want = lane_codec.decode_grouped_plain(stream, states, dec, 6, T)
+    for lead in (0, 1, 15):
+        at = torch.cat([torch.full((lead,), 0xAB, dtype=torch.uint8,
+                                   device=cuda), stream])[lead:]
+        assert torch.equal(decode.decode_grouped(at, states, dec, 6, T,
+                                                 instance=instance), want)
+    n, S = 40007, 1024
+    _, dec, stream, states, T, _ = _frame_run(nf, S, cuda, n=n,
+                                              exceptions=True)
+    want = lane_codec.decode_grouped_plain(stream, states, dec, n, T)
+    for lead in range(1, 16):
+        pad = torch.full((lead,), 0xCD, dtype=torch.uint8, device=cuda)
+        at = torch.cat([pad, stream, pad])[lead:lead + stream.numel()]
+        assert at.data_ptr() % 16 == lead
+        assert torch.equal(decode.decode_grouped(
+            at, states, dec, n, T, instance=instance), want), lead
+    for cut in (1, 7, 16, 33):  # the last steps' bytes are missing
+        with pytest.raises(ValueError, match="corrupt"):
+            decode.decode_grouped(stream[: stream.numel() - cut], states,
+                                  dec, n, T, instance=instance)
+
+
+@pytest.mark.parametrize("instance", ["ring", "global"])
+def test_grouped_truncated_and_corrupt_streams(cuda, instance):
+    """Half a stream raises; flipped bytes and foreign states decode to
+    what the plain version decodes from them, or raise where it raises."""
+    n, S = 40000, 1024
+    _, dec, stream, states, T, _ = _frame_run(_small_grouped_freqs(), S,
+                                              cuda, n=n, exceptions=True)
+    with pytest.raises(ValueError, match="corrupt"):
+        decode.decode_grouped(stream[: stream.numel() // 2].clone(), states,
+                              dec, n, T, instance=instance)
+    rng = np.random.default_rng(1)
+    flipped = stream.clone()
+    at = torch.from_numpy(rng.integers(0, stream.numel(), 64)).to(cuda)
+    flipped[at] ^= 0x5A
+    bad_states = states.clone()
+    bad_states[::3] = 1 << 23  # every third lane reads too much
+    for src, sts in ((flipped, states), (stream, bad_states)):
+        try:
+            want = lane_codec.decode_grouped_plain(src, sts, dec, n, T)
+        except ValueError:
+            with pytest.raises(ValueError, match="corrupt"):
+                decode.decode_grouped(src, sts, dec, n, T, instance=instance)
+        else:
+            assert torch.equal(decode.decode_grouped(
+                src, sts, dec, n, T, instance=instance), want)
+
+
+def test_grouped_table_that_leaves_the_ring_no_room(cuda):
+    """sigma = 40000 with one exception byte: 201 KB of tables fit the
+    block, the ring beside them does not, so the wrapper takes K5's
+    instance on global loads with its per-rank table in shared memory;
+    forcing the ring raises."""
+    f = np.ones(40000, np.int64)
+    f[:25536] = 2
+    nf = np.random.default_rng(8).permutation(f).astype(np.uint64)
+    assert int(nf.sum()) == 1 << 16
+    before = dict(decode.instance_launches["decode_grouped"])
+    _, dec, stream, states, T, _ = _frame_run(nf, 4096, cuda, n=80000,
+                                              exceptions=True)
+    assert decode.grouped_shared_tables(dec)[0]
+    assert decode.instance_launches["decode_grouped"] == {
+        "ring": before["ring"], "global": before["global"] + 2}
+    with pytest.raises(ValueError, match="does not fit"):
+        decode.decode_grouped(stream, states, dec, 80000, T, instance="ring")
+
+
+@pytest.mark.parametrize("by_symbol", [False, True])
+@pytest.mark.parametrize("S,T", [
+    (1, 5), (1, 70), (32, 31), (32, 33), (100, 64), (100, 7), (4096, 1),
+    (4096, 40), (16384, 33)])
+def test_grouped_scan_ragged_shapes(cuda, S, T, by_symbol):
+    """K6 on scans that end inside a tile of 32 steps (or have fewer
+    steps than one tile), inside a row of lanes (n ends mid-row) and
+    inside a block of 32 lanes (S = 1, 100), fed ranks or symbol ids."""
+    nf = _many_groups_freqs()
+    lay = grouped.build_group_layout(nf)
+    enc = tables.grouped_enc_to_device(lay, cuda, rank_of=by_symbol)
+    n = (T - 1) * S + max(1, S // 3)
+    rng = np.random.default_rng(S * 131 + T)
+    syms = rng.choice(len(nf), size=T * S, p=nf / nf.sum()).astype(np.uint32)
+    vals = syms if by_symbol else lay.rank_of[syms]
+    # what lies past n is not read: put symbols outside the tables there
+    vals = vals.astype(np.int32)
+    vals[n:] = len(nf) + 5
+    m_ts = torch.from_numpy(vals.reshape(T, S)).to(cuda)
+    count = encode.grouped_launches
+    packed, states = encode.encode_scan_grouped(m_ts, n, enc)
+    assert encode.grouped_launches == count + 1
+    pp, ps = lane_codec.encode_scan_grouped_plain(m_ts, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
 
 
 # --------------------------------------------------------------------------

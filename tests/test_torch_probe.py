@@ -8,6 +8,8 @@ TPU's.  So each plain chain is held against an independent numpy loop,
 thread by thread, and the kernel against the plain chain on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -109,6 +111,71 @@ def _numpy_read(x, buf, steps):
     return np.array(v, dtype=np.uint64).astype(np.uint32)
 
 
+def _numpy_encode(x, inp, steps):
+    """Thread after thread, lane::encode_step as the kernel writes it: the
+    divide by the Granlund-Montgomery multiply-high, not by `//`."""
+    rows = _u32(inp.enc_rows)
+    log2m = inp.grouped.log2m
+    A_L = 1 << 23
+    out = []
+    for k, a in enumerate(_u32(x)):
+        st, words = A_L | (int(a) & (A_L - 1)), 0
+        for i in range(steps):
+            f, base, magic, _ = (int(w) for w in rows[
+                (k + i * len(x)) & (probe.ENC_ROWS - 1)])
+            ub = (f << (31 - log2m)) & M32
+            word = rc = 0
+            for j in range(3):
+                word |= (st & 0xFF) << (8 * j)
+                if st >= ub:
+                    st >>= 8
+                    rc += 1
+            if f == 1:
+                q = st
+            else:
+                mh = (st * magic) >> 32
+                q = (mh + ((st - mh) >> 1)) >> ((f - 1).bit_length() - 1)
+            assert q == st // f
+            st = ((q << log2m) + (st - q * f) + base) & M32
+            assert A_L <= st < 1 << 31
+            words = (words + (word | rc << 24)) & M32
+        out.append((st + words) & M32)
+    return np.array(out, dtype=np.uint64).astype(np.uint32)
+
+
+def _numpy_group(x, inp, steps):
+    """K5's lookup with the group found by numpy's own search over the
+    groups' first slots."""
+    g = inp.grouped
+    rows = _u32(g.groups)
+    slot0 = g.groups[:, 2].numpy().astype(np.int64)
+    table = _u32(g.table)
+    v = [int(a) for a in _u32(x)]
+    for _ in range(steps):
+        out = []
+        for a in v:
+            slot = a & (g.frame_size - 1)
+            f, _, lb, rank0 = (int(w) for w in rows[
+                np.searchsorted(slot0, slot, side="right") - 1])
+            j = (slot - lb) // f
+            s0 = (f * (a >> g.log2m) + slot - lb - j * f) & M32
+            out.append(((s0 ^ int(table[rank0 + j])) * probe.GOLD + 1) & M32)
+        v = out
+    return np.array(v, dtype=np.uint64).astype(np.uint32)
+
+
+def test_probe_frames_are_what_the_chains_are_named_for(inp):
+    """The grouped frame has a value table, several search levels and
+    fewer of them than the full search; the encode rows are valid rows of
+    its frame."""
+    g = inp.grouped
+    assert g.table.numel() == g.sigma == probe.G_SIGMA and g.NE == 0
+    assert 0 < g.levels < g.depth and g.groups.shape[0] > 100
+    f = inp.enc_rows[:, 0]
+    assert int(f.min()) >= 1 and int(f.max()) > 1
+    assert int((inp.enc_rows[:, 1] + f).max()) <= g.frame_size
+
+
 @pytest.mark.parametrize("threads", [32, 96])
 @pytest.mark.parametrize("name", sorted(probe.CHAINS))
 def test_plain_chain_equals_numpy_loop(inp, name, threads):
@@ -120,6 +187,10 @@ def test_plain_chain_equals_numpy_loop(inp, name, threads):
         want = _numpy_scalar(name, x, inp, steps)
     elif kind == "scan":
         want = _numpy_scan(x, steps)
+    elif kind == "encode":
+        want = _numpy_encode(x, inp, steps)
+    elif kind == "group":
+        want = _numpy_group(x, inp, steps)
     else:
         want = _numpy_read(x, inp.buf, steps)
     np.testing.assert_array_equal(got, want)
@@ -144,8 +215,7 @@ def test_old_and_new_step_chains_share_their_values(inp):
 def test_read_chain_past_the_end_reads_zero(inp):
     """A stream shorter than what the lanes ask for: the plain read takes
     zeros past its end, as the decoders' plain versions do."""
-    short = probe.Inputs(tab=inp.tab, slot_sym=inp.slot_sym, rows=inp.rows,
-                         buf=inp.buf[:16].clone())
+    short = dataclasses.replace(inp, buf=inp.buf[:16].clone())
     x = probe.make_x("read_ring", 32, "cpu")
     v, cursor = probe._read_op(x.to(torch.int64) & M32, 0, short.buf)
     assert cursor > 16
@@ -168,9 +238,8 @@ def test_wrapper_checks_its_arguments(inp, bad):
     args = {"name": ("nope", x, ITERS, inp),
             "dtype": ("add", x.to(torch.int64), ITERS, inp),
             "threads": ("add", x[:20], ITERS, inp),
-            "buf": ("add", x, ITERS, probe.Inputs(
-                tab=inp.tab, slot_sym=inp.slot_sym, rows=inp.rows,
-                buf=inp.buf[:1000])),
+            "buf": ("add", x, ITERS, dataclasses.replace(
+                inp, buf=inp.buf[:1000])),
             "depth": ("read_ring", x, 1 << 12, inp)}[bad]
     with pytest.raises(ValueError):
         probe.run_plain(*args)
