@@ -23,9 +23,12 @@ K6:
   a   one thread a lane loads 16 symbols, resolves their 16 rows into
       registers, then runs 16 chain steps; blocks of 256 lanes
   ac  a in blocks of 32 lanes
-  b4 / b2  the rows resolved a tile ahead by lookup warps into shared
-      memory (csrc/encode_ahead.cuh), blocks of 128 / 64 lanes
-  bc  the same in blocks of 32 lanes: the kernel as it is
+  b4  the rows resolved a tile ahead by lookup warps into shared memory
+      (csrc/encode_ahead.cuh), blocks of 128 lanes, four lookup warps a
+      chain warp with eight lookups in flight a thread
+  b1  the same in blocks of 32 lanes
+  b2 / bc  eight lookup warps a chain warp with four lookups in flight a
+      thread, blocks of 64 / 32 lanes; bc is the kernel as it is
 
 Cells: ANSfold-7 on zipf20 (n = 2^25, S = 4096: the grouped path) and ANS on
 dense22 (n = 2^22; K5's value table in global memory, K6 fed ranks).  Every
@@ -88,6 +91,15 @@ def chain_warps(count: int):
     """K6: a block owns 32 * count lanes."""
     return ("encode_ahead.cuh", "constexpr int CHAIN_WARPS = 1;",
             f"constexpr int CHAIN_WARPS = {count};")
+
+
+# K6: four lookup warps a chain warp, eight lookups in flight a thread (what
+# lets a block of four chain warps stay within 1024 threads)
+FOUR_LOOKUP_WARPS = [
+    ("encode_ahead.cuh", "constexpr int LOOKUP_WARPS = 8;",
+     "constexpr int LOOKUP_WARPS = 4;"),
+    ("encode_ahead.cuh", "constexpr int LOOKUPS = 4;",
+     "constexpr int LOOKUPS = 8;")]
 
 
 # K6: each thread resolves the rows of its own next 16 steps into registers,
@@ -293,12 +305,13 @@ def main(argv=None) -> int:
                 emit(cell, "K5", "e on global loads",
                      time_k5(cell, cell.dec, "e/global", instance="global"))
             # K6: the register form in blocks of 256 lanes (as the kernel
-            # had them) and of 32, then the tile form in blocks of 128, 64
-            # and 32 lanes
+            # had them) and of 32, then the tile form
             registers = [REGISTER_ROWS, *REGISTER_LAUNCH]
             for step, patches in (("a", [*registers, chain_warps(8)]),
                                   ("ac", registers),
-                                  ("b4", [chain_warps(4)]),
+                                  ("b4", [chain_warps(4),
+                                          *FOUR_LOOKUP_WARPS]),
+                                  ("b1", FOUR_LOOKUP_WARPS),
                                   ("b2", [chain_warps(2)]), ("bc", [])):
                 with Variant(f"k6_{step}", patches):
                     emit(cell, "K6", step, time_k6(cell, step))

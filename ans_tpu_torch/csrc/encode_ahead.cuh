@@ -30,8 +30,8 @@ namespace ahead {
 constexpr int D = 32;            // steps a tile
 constexpr int CHAIN_WARPS = 1;   // chain warps a block (timed: 1, 2, 4)
 constexpr int L = 32 * CHAIN_WARPS;  // lanes a block owns
-constexpr int LOOKUP_WARPS = 4;  // lookup warps per chain warp
-constexpr int LOOKUPS = 8;       // lookups in flight a thread
+constexpr int LOOKUP_WARPS = 8;  // lookup warps per chain warp (timed: 3-8)
+constexpr int LOOKUPS = 4;       // lookups in flight a thread
 constexpr int THREADS = L * (1 + LOOKUP_WARPS);  // the block
 static_assert(LOOKUP_WARPS * LOOKUPS == D,
               "a lookup thread resolves its lane's share of a tile in one "
@@ -85,29 +85,29 @@ __device__ __forceinline__ void fill_tile(int at, int tile, int T, int S,
 
 // The chain of one lane (global index `lane`, `l` inside the block) over
 // the steps of one tile at smem[at ..], last first: one lane::encode_step a
-// step, its row loaded one step before it is needed; a pad position (past
-// n) emits no bytes and keeps the state.
+// step, its row loaded one step before it is needed.  Positions past n are
+// the scan's last steps (one at most when T = ceil(n / S)): such a pad
+// position emits no bytes and keeps the state, and they are dealt with
+// before the loop, which then has no branch on the chain.
 __device__ __forceinline__ void chain_tile(int at, int tile, int T, int S,
                                            int lane, int l, int64_t n,
                                            int log2m, uint32_t& st,
                                            int32_t* __restrict__ packed) {
   const int t0 = tile * D;
-  const int steps = T - t0 < D ? T - t0 : D;
-  int64_t idx = static_cast<int64_t>(t0 + steps - 1) * S + lane;
-  int4 next = smem[at + (steps - 1) * L + l];
-  for (int d = steps - 1; d >= 0; --d, idx -= S) {
+  int d = (T - t0 < D ? T - t0 : D) - 1;
+  int64_t idx = static_cast<int64_t>(t0 + d) * S + lane;
+  for (; d >= 0 && idx >= n; --d, idx -= S) {
+    const uint32_t b = st & 0xFF;
+    packed[idx] = static_cast<int32_t>(b | (b << 8) | (b << 16));
+  }
+  if (d < 0) return;
+  int4 next = smem[at + d * L + l];
+  for (; d >= 0; --d, idx -= S) {
     const int4 row = next;
     if (d > 0) next = smem[at + (d - 1) * L + l];
-    uint32_t word;
-    if (idx < n) {
-      word = lane::encode_step(st, static_cast<uint32_t>(row.x),
-                               static_cast<uint32_t>(row.y),
-                               static_cast<uint32_t>(row.z), log2m);
-    } else {
-      const uint32_t b = st & 0xFF;
-      word = b | (b << 8) | (b << 16);
-    }
-    packed[idx] = static_cast<int32_t>(word);
+    packed[idx] = static_cast<int32_t>(lane::encode_step(
+        st, static_cast<uint32_t>(row.x), static_cast<uint32_t>(row.y),
+        static_cast<uint32_t>(row.z), log2m));
   }
 }
 

@@ -23,10 +23,10 @@
 //
 // What the design does about it (encode_ahead.cuh has the mechanism): the
 // lookups run a tile of 32 steps ahead of the chain, in warps of their
-// own, eight of them in flight a thread and their searches advancing level
+// own, four of them in flight a thread and their searches advancing level
 // by level together, and hand the rows [f, base, magic] over in shared
-// memory; a block
-// owns 32 lanes, so S = 4096 spreads over 128 of the 132 SMs.  The NG-sized
+// memory; the chain's loop has no branch; a block owns 32 lanes, so
+// S = 4096 spreads over 128 of the 132 SMs.  The NG-sized
 // group rows [f, magic, slot0, rank0] (one 16-byte load) and the rank
 // boundaries live in shared memory, at most 16*2896 + 4*4097 bytes since
 // NG <= sqrt(2M); the sigma-sized rank_of is read from global memory

@@ -17,7 +17,7 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      once;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
      version on the same inputs (S = 4096 at n = 2^20 and S = 32 at
-     n = 2^18, 8192 steps: K1-K4 on
+     n = 2^17, 4096 steps: K1-K4 on
      ANSfold-2 and on AnsByte's frame, K5/K6 on ANSfold-7 (in-kernel symbol
      -> rank map, high/nb table), on ANS without the escape (ranks, value
      table), on a frame whose ranks are its values, and with K4 on a
@@ -733,7 +733,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     errs = {}
-    for lanes, log2n in ((32, 18), (4096, 20)):
+    for lanes, log2n in ((32, 17), (4096, 20)):
         n2 = 1 << log2n
         z20 = zipf20_input(n2)
         for what, st in (

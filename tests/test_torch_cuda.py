@@ -472,6 +472,22 @@ def test_grouped_scan_ragged_shapes(cuda, S, T, by_symbol):
     assert torch.equal(packed, pp) and torch.equal(states, ps)
 
 
+@pytest.mark.parametrize("S,T,n", [(32, 40, 20 * 32 + 5), (4096, 70, 4096),
+                                   (100, 33, 1)])
+def test_grouped_scan_rows_past_n(cuda, S, T, n):
+    """K6 on a staging with more steps than n needs: every row past n is a
+    pad (no bytes, the state kept), whole tiles of them included."""
+    nf = _small_grouped_freqs()
+    lay = grouped.build_group_layout(nf)
+    enc = tables.grouped_enc_to_device(lay, cuda, rank_of=False)
+    rng = np.random.default_rng(T)
+    ranks = rng.integers(0, lay.sigma, size=T * S).astype(np.int32)
+    m_ts = torch.from_numpy(ranks.reshape(T, S)).to(cuda)
+    packed, states = encode.encode_scan_grouped(m_ts, n, enc)
+    pp, ps = lane_codec.encode_scan_grouped_plain(m_ts, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+
+
 # --------------------------------------------------------------------------
 # the direct kernel K4 (decode_direct)
 # --------------------------------------------------------------------------

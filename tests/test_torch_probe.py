@@ -232,7 +232,8 @@ def test_kernel_wrapper_refuses_cpu_tensors(inp):
     assert probe.launches == count
 
 
-@pytest.mark.parametrize("bad", ["name", "dtype", "threads", "buf", "depth"])
+@pytest.mark.parametrize("bad", ["name", "dtype", "threads", "buf", "depth",
+                                 "enc_rows", "grouped"])
 def test_wrapper_checks_its_arguments(inp, bad):
     x = probe.make_x("read_ring", 32, "cpu")
     args = {"name": ("nope", x, ITERS, inp),
@@ -240,7 +241,12 @@ def test_wrapper_checks_its_arguments(inp, bad):
             "threads": ("add", x[:20], ITERS, inp),
             "buf": ("add", x, ITERS, dataclasses.replace(
                 inp, buf=inp.buf[:1000])),
-            "depth": ("read_ring", x, 1 << 12, inp)}[bad]
+            "depth": ("read_ring", x, 1 << 12, inp),
+            "enc_rows": ("encode_step", x, ITERS, dataclasses.replace(
+                inp, enc_rows=inp.enc_rows[:100])),
+            # a frame with exception bytes is not what group_search reads
+            "grouped": ("group_search", x, ITERS, dataclasses.replace(
+                inp, grouped=dataclasses.replace(inp.grouped, NE=1)))}[bad]
     with pytest.raises(ValueError):
         probe.run_plain(*args)
 
