@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from ans_tpu.ops import grouped as jgrouped
+from ans_tpu_torch import bench_steps
+from ans_tpu_torch.csrc import build
 from ans_tpu_torch.ops import decode, lane_codec, tables
 
 
@@ -197,3 +199,15 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_instance():
     perm = jgrouped.build_group_layout(nf).perm.astype(np.int64)
     np.testing.assert_array_equal(
         outs[0].reshape(-1)[:n].numpy(), perm[ranks[:n]])
+
+
+def test_bench_steps_substitutions_match_the_sources():
+    """bench_steps rebuilds the kernels' earlier forms by replacing text in
+    a copy of csrc/: every text it replaces stands in the sources exactly
+    once, so the script times what it says it times."""
+    patches = [bench_steps.LANE_AFTER_LANE, bench_steps.SCALAR_STORES,
+               bench_steps.REGISTER_ROWS, *bench_steps.REGISTER_LAUNCH,
+               *bench_steps.FOUR_LOOKUP_WARPS, bench_steps.chain_warps(2)]
+    for fname, old, new in patches:
+        assert (build.CSRC / fname).read_text().count(old) == 1, (fname, old)
+        assert new != old
