@@ -29,6 +29,9 @@ K6:
   b1  the same in blocks of 32 lanes
   b2 / bc  eight lookup warps a chain warp with four lookups in flight a
       thread, blocks of 64 / 32 lanes; bc is the kernel as it is
+  chain alone / lookups alone  bc with the lookup warps' work, or the chain
+      warp's, cut out (outputs not checked: they are wrong by design):
+      which of the two halves the kernel waits for
 
 Cells: ANSfold-7 on zipf20 (n = 2^25, S = 4096: the grouped path) and ANS on
 dense22 (n = 2^22; K5's value table in global memory, K6 fed ranks).  Every
@@ -100,6 +103,20 @@ FOUR_LOOKUP_WARPS = [
      "constexpr int LOOKUP_WARPS = 4;"),
     ("encode_ahead.cuh", "constexpr int LOOKUPS = 4;",
      "constexpr int LOOKUPS = 8;")]
+
+
+# K6: the lookup warps resolve nothing (the chain runs on whatever the tile
+# holds), or the chain warp runs nothing
+NO_LOOKUPS = ("encode_ahead.cuh", """\
+    } else if (tile > 0) {
+      fill_tile(""", """\
+    } else if (tile < 0) {
+      fill_tile(""")
+NO_CHAIN = ("encode_ahead.cuh", """\
+      if (lane < S)
+        chain_tile(""", """\
+      if (lane < 0)
+        chain_tile(""")
 
 
 # K6: each thread resolves the rows of its own next 16 steps into registers,
@@ -315,6 +332,10 @@ def main(argv=None) -> int:
                                   ("b2", [chain_warps(2)]), ("bc", [])):
                 with Variant(f"k6_{step}", patches):
                     emit(cell, "K6", step, time_k6(cell, step))
+            for step, patch in (("chain alone", NO_LOOKUPS),
+                                ("lookups alone", NO_CHAIN)):
+                with Variant("k6_" + step.replace(" ", "_"), [patch]):
+                    emit(cell, "K6", step, cuda_ms(cell.scan))
     text = json.dumps({"card": smi, "runs": RUNS, "lanes": LANES,
                        "steps": recs})
     print(text)

@@ -207,7 +207,8 @@ def test_bench_steps_substitutions_match_the_sources():
     once, so the script times what it says it times."""
     patches = [bench_steps.LANE_AFTER_LANE, bench_steps.SCALAR_STORES,
                bench_steps.REGISTER_ROWS, *bench_steps.REGISTER_LAUNCH,
-               *bench_steps.FOUR_LOOKUP_WARPS, bench_steps.chain_warps(2)]
+               *bench_steps.FOUR_LOOKUP_WARPS, bench_steps.chain_warps(2),
+               bench_steps.NO_LOOKUPS, bench_steps.NO_CHAIN]
     for fname, old, new in patches:
         assert (build.CSRC / fname).read_text().count(old) == 1, (fname, old)
         assert new != old
