@@ -10,68 +10,110 @@
 // lane) gets the packed word r0 | r1<<8 | r2<<16 | rc<<24, where byte
 // slot i is the low byte of the state after the first i conditional
 // shifts (so unused slots repeat the last byte, or the state's low byte
-// when rc = 0), and each lane its final state.
+// when rc = 0), and each lane its final state.  An absent symbol (freq 0)
+// codes as freq 1; a symbol outside the table sets the error flag and
+// codes as symbol 0.
 //
-// What bounds it on the card: latency.  The scan is sequential in t and
-// independent across lanes, so S lanes give S threads: at S = 4096 that
-// is 16 blocks of 256, on 16 of the 132 SMs.  Each step is a short chain
-// of dependent integer operations behind two dependent loads (the symbol,
-// then its table row); bytes moved (8 per symbol) are far below the
-// memory system's rate.
+// What bounds it on the card: the latency of one lane's state chain.  The
+// scan is sequential in t and independent across lanes; a step's
+// arithmetic (lane::encode_step) is a chain of about forty dependent
+// instructions, and T of them follow each other whatever else the card
+// does.  The lookup in front of it (the symbol from device memory, then
+// its table row) does not depend on the state.
 //
-// What the design does about it: one thread per lane, reading the (T, S)
-// symbols at t*S + lane so a warp reads 32 consecutive words and writes
-// 32 consecutive packed words; the table row [freq, base, magic, 0] is one
-// 16-byte load; the next step's symbol and table row are loaded before
-// the current step's arithmetic, so their latency overlaps it.  Division
-// keeps the TPU kernel's magic (an exact `__umulhi` sequence) rather than
-// the card's slow 32-bit divide.  Batching streams to fill the card is
-// later work.
-#include "common.cuh"
+// What the design does about it (encode_ahead.cuh has the mechanism, K6
+// runs on it too): a block owns 32 lanes, so S = 4096 spreads over 128 of
+// the 132 SMs; lookup warps resolve the rows of a tile of 32 steps ahead
+// of the one chain warp, and the chain reads each step's row with one
+// shared-memory load, in a loop with no branch.  The (sigma, 4) table sits
+// in shared memory behind the tile when it fits (sigma <= 12,288: 192 KB
+// of rows beside the 32 KB tile), so a row is one shared-memory load after
+// the symbol's global load; a larger, sparser table is read through __ldg.
+// Division keeps the TPU kernel's magic (an exact `__umulhi` sequence)
+// rather than the card's slow 32-bit divide.
+#include "encode_ahead.cuh"
 
 namespace {
 
-__device__ __forceinline__ int4 load_row(const int32_t* __restrict__ syms,
-                                         const int4* __restrict__ table,
-                                         int64_t idx, int64_t n, int sigma,
-                                         int32_t* err) {
-  if (idx >= n) return make_int4(0, 0, 0, 0);
-  int s = __ldg(syms + idx);
-  if (static_cast<unsigned>(s) >= static_cast<unsigned>(sigma)) {
-    *err = 1;  // symbol outside the table: flag it, encode it as symbol 0
-    s = 0;
-  }
-  return __ldg(table + s);
-}
+// the rows of the table that fit in shared memory beside the tile
+constexpr int SMEM_TABLE_ROWS = 12288;
 
+// The lookup of one position: its symbol, then its row.
+template <bool SMEM_TABLE>
+struct Find {
+  const int32_t* syms;   // global: (T, S) symbol ids
+  const int4* table_g;   // global: (sigma, 4) rows [f, base, magic, 0]
+  int table_at;          // ahead::smem[table_at ..]: the same rows
+  uint32_t sigma;
+  int32_t* err;
+
+  __device__ __forceinline__ uint32_t fetch(int64_t idx) const {
+    return static_cast<uint32_t>(__ldg(syms + idx));
+  }
+
+  __device__ __forceinline__ void prefetch(int64_t idx) const {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(syms + idx));
+  }
+
+  // The rows [max(f, 1), base, magic, 0] of a batch of symbols x (zero rows
+  // where in[b] is not set).  Every row load is started before any is
+  // looked at: a symbol outside the table reads row 0 and is flagged.
+  template <int B>
+  __device__ __forceinline__ void rows(const uint32_t (&x)[B],
+                                       const bool (&in)[B],
+                                       int4 (&row)[B]) const {
+    int4 r[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const uint32_t s = x[b] < sigma ? x[b] : 0u;
+      r[b] = SMEM_TABLE ? ahead::smem[table_at + s] : __ldg(table_g + s);
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (in[b] && x[b] >= sigma) *err = 1;  // flag it, code symbol 0
+      // an absent symbol (freq 0) codes as freq 1, as the plain version
+      row[b] = in[b] ? make_int4(max(r[b].x, 1), r[b].y, r[b].z, 0)
+                     : make_int4(0, 0, 0, 0);
+    }
+  }
+};
+
+template <bool SMEM_TABLE>
 __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
                                    const int4* __restrict__ table, int sigma,
                                    int64_t n, int T, int S, int log2m,
                                    int32_t* __restrict__ packed,
                                    int32_t* __restrict__ states,
                                    int32_t* __restrict__ err) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= S) return;
-  uint32_t st = lane::A_L;
-  int64_t idx = static_cast<int64_t>(T - 1) * S + lane;
-  int4 next = T > 0 ? load_row(syms, table, idx, n, sigma, err)
-                    : make_int4(0, 0, 0, 0);
-  for (int t = T - 1; t >= 0; --t, idx -= S) {
-    const int4 row = next;
-    if (t > 0) next = load_row(syms, table, idx - S, n, sigma, err);
-    uint32_t word;
-    if (idx < n) {
-      // an absent symbol (freq 0) codes as freq 1, as the plain version
-      word = lane::encode_step(st, max(static_cast<uint32_t>(row.x), 1u),
-                               static_cast<uint32_t>(row.y),
-                               static_cast<uint32_t>(row.z), log2m);
-    } else {
-      const uint32_t b = st & 0xFF;  // pad position: no bytes, state kept
-      word = b | (b << 8) | (b << 16);
-    }
-    packed[idx] = static_cast<int32_t>(word);
+  const int table_at = ahead::TILE_ROWS;
+  if (SMEM_TABLE) {
+    for (int i = threadIdx.x; i < sigma; i += blockDim.x)
+      ahead::smem[table_at + i] = table[i];
+    __syncthreads();
   }
-  states[lane] = static_cast<int32_t>(st);
+  const Find<SMEM_TABLE> find{syms, table, table_at,
+                              static_cast<uint32_t>(sigma), err};
+  ahead::scan_block(T, S, n, log2m, find, packed, states);
+}
+
+template <bool SMEM_TABLE>
+int launch(const void* syms, const void* table, int sigma, int64_t n, int T,
+           int S, int log2m, void* packed, void* states, void* err,
+           cudaStream_t stream) {
+  const int blocks = (S + ahead::L - 1) / ahead::L;
+  const size_t smem =
+      16 * (size_t(ahead::TILE_ROWS) + (SMEM_TABLE ? size_t(sigma) : 0));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        encode_scan_kernel<SMEM_TABLE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  encode_scan_kernel<SMEM_TABLE><<<blocks, ahead::THREADS, smem, stream>>>(
+      static_cast<const int32_t*>(syms), static_cast<const int4*>(table),
+      sigma, n, T, S, log2m, static_cast<int32_t*>(packed),
+      static_cast<int32_t*>(states), static_cast<int32_t*>(err));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -82,12 +124,11 @@ __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
 extern "C" int encode_scan(const void* syms, const void* table, int sigma,
                            int64_t n, int T, int S, int log2m, void* packed,
                            void* states, void* err, void* stream) {
-  const int threads = S < 256 ? (S < 32 ? 32 : S) : 256;
-  const int blocks = (S + threads - 1) / threads;
-  encode_scan_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(syms), static_cast<const int4*>(table),
-      sigma, n, T, S, log2m, static_cast<int32_t*>(packed),
-      static_cast<int32_t*>(states), static_cast<int32_t*>(err));
-  return static_cast<int>(cudaGetLastError());
+  if (S == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return sigma <= SMEM_TABLE_ROWS
+             ? launch<true>(syms, table, sigma, n, T, S, log2m, packed,
+                            states, err, s)
+             : launch<false>(syms, table, sigma, n, T, S, log2m, packed,
+                             states, err, s);
 }

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import lane_codec, tables
+from ..ops import tables
 from ..ops.decode import decode_direct, decode_grouped, decode_search
 from ..ops.encode import encode_scan, encode_scan_grouped
 from ..ops.place import place
@@ -111,16 +111,10 @@ def decode(payload: np.ndarray, states: np.ndarray, table, n: int, *,
     return prep.to_host(prep())
 
 
-def _section_plan(packed: torch.Tensor, nb_ts: torch.Tensor, n: int):
-    """(round_base, total, t_sec, sec_len) of a scan's packed words; the
-    section cut (wire format) is chosen on the host from the T step
-    offsets."""
-    round_base, total = lane_codec.encode_totals(packed, nb_ts, n)
-    total = int(total)
-    t_sec, sec_len = framing.choose_sections(
-        round_base[::lane_codec.NROUNDS].cpu().numpy(), total,
-        packed.shape[0])
-    return round_base, total, t_sec, sec_len
+def _section_plan(step_base: torch.Tensor, total: int, T: int):
+    """(t_sec, sec_len): the section cut (wire format), chosen on the host
+    from the placement's T step offsets."""
+    return framing.choose_sections(step_base.cpu().numpy(), total, T)
 
 
 def _scan(syms: torch.Tensor, n: int, table):
@@ -133,23 +127,23 @@ def _scan(syms: torch.Tensor, n: int, table):
 
 def encode(mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
            excw_ts: torch.Tensor, n: int, table) -> bytes:
-    """One-shot: scan, plan the sections, place, and frame the stream.
+    """One-shot: scan, place, plan the sections, and frame the stream.
 
     mapped_ts/nb_ts/excw_ts: (T, S) i32 tensors (symbols or ranks,
     exception-byte counts, the values' three low bytes) and the scan's
     device table, all on one device."""
     packed, states = _scan(mapped_ts, n, table)
-    round_base, total, t_sec, sec_len = _section_plan(packed, nb_ts, n)
-    stream = place(packed, nb_ts, excw_ts, n, round_base, total)
+    stream, step_base, total = place(packed, nb_ts, excw_ts, n)
+    t_sec, sec_len = _section_plan(step_base, total, packed.shape[0])
     return framing.pack(states.cpu().numpy().view(np.uint32),
                         stream.cpu().numpy(), t_sec, sec_len)
 
 
 class PreparedEncoder:
     """Device-resident encode: inputs and the scan's device table staged
-    as for `encode`, and the section plan fixed by one priming scan; each
-    call then runs the scan kernel, the round totals and the placement
-    kernel."""
+    as for `encode`, and the section plan fixed by one priming scan and
+    placement; each call then runs the scan kernel and the placement
+    kernel, which checks the stream's length against the plan."""
 
     def __init__(self, mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
                  excw_ts: torch.Tensor, n: int, table):
@@ -158,15 +152,15 @@ class PreparedEncoder:
         self.mapped_ts, self.nb_ts, self.excw_ts = mapped_ts, nb_ts, excw_ts
         self.table = table
         packed, _ = _scan(mapped_ts, n, table)
-        _, self.total, self.t_sec, self.sec_len = _section_plan(
-            packed, nb_ts, n)
+        _, step_base, self.total = place(packed, nb_ts, excw_ts, n)
+        self.t_sec, self.sec_len = _section_plan(step_base, self.total,
+                                                 self.T)
 
     def __call__(self):
         """Returns (stream (total,) u8, states (S,) i32), on the device."""
         packed, states = _scan(self.mapped_ts, self.n, self.table)
-        round_base, _ = lane_codec.encode_totals(packed, self.nb_ts, self.n)
-        stream = place(packed, self.nb_ts, self.excw_ts, self.n, round_base,
-                       self.total)
+        stream, _, _ = place(packed, self.nb_ts, self.excw_ts, self.n,
+                             self.total)
         return stream, states
 
     def to_bytes(self, stream: torch.Tensor, states: torch.Tensor) -> bytes:

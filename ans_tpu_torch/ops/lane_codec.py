@@ -1,10 +1,11 @@
 """Lane-format ("ATF" fmt 2) rANS engine in plain PyTorch: S lanes in
 lockstep over one shared byte stream (docs/FORMAT.md section 2).
 
-Counterpart of ans_tpu/ops/lane_codec.py.  Besides the host-side
-helpers of the engine (`lane_steps`, `encode_totals`) this module holds
-the PLAIN VERSIONS of the CUDA kernels: each computes the same function
-from the same inputs as its kernel, with ordinary tensor ops.  The
+Counterpart of ans_tpu/ops/lane_codec.py.  Besides `lane_steps` and
+`encode_totals` (the offset of every (step, round) pair, from which K2's
+plain version places the bytes) this module holds the PLAIN VERSIONS of
+the CUDA kernels: each computes the same function from the same inputs
+as its kernel, with ordinary tensor ops.  The
 kernels' wrappers (ops/encode.py, ops/place.py, ops/decode.py) run them
 for tensors on the CPU, and chip_smoke.py holds each kernel against its
 plain version on the card.
@@ -140,14 +141,22 @@ def _scan(freq: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
 
 
 def place_plain(packed: torch.Tensor, nb: torch.Tensor, excw: torch.Tensor,
-                n: int, round_base: torch.Tensor, total: int) -> torch.Tensor:
-    """Plain version of K2 (csrc/place.cu): count-then-place of the
-    packed words and exception bytes into the fmt-2 stream.
+                n: int, total: int | None = None):
+    """Plain version of K2 (csrc/place.cu): the round totals
+    (encode_totals), then the packed words and exception bytes placed
+    into the fmt-2 stream.
 
     packed/nb/excw: (T, S) i32 (excw holds the three low bytes of each
-    value, lowest first); round_base: (T*6,) i64 from encode_totals.
-    Returns the (total,) u8 stream."""
+    value, lowest first).  Returns (stream (total,) u8, step_base (T,)
+    i64: the stream offset of each step, total: the stream's length).
+    Raises ValueError when `total` is given and the words add up to
+    another length."""
     T, S = packed.shape
+    round_base, got = encode_totals(packed, nb, n)
+    got = int(got)
+    if total is not None and got != total:
+        raise ValueError(f"place: the words hold {got} bytes, not the "
+                         f"{total} of the section plan")
     rc, nbv, masks = _round_masks(packed, nb, n)
     mi = masks.to(torch.int64)
     rank = torch.cumsum(mi, dim=1) - mi
@@ -159,9 +168,9 @@ def place_plain(packed: torch.Tensor, nb: torch.Tensor, excw: torch.Tensor,
     rbytes = (packed.to(torch.int64)[..., None] >> rsh) & 0xFF
     ebytes = (excw.to(torch.int64)[..., None] >> esh) & 0xFF
     byte = torch.cat([rbytes, ebytes], dim=-1)
-    stream = torch.zeros(total, dtype=torch.uint8, device=packed.device)
+    stream = torch.zeros(got, dtype=torch.uint8, device=packed.device)
     stream[pos[masks]] = byte[masks].to(torch.uint8)
-    return stream
+    return stream, round_base[::NROUNDS].contiguous(), got
 
 
 def decode_search_plain(stream: torch.Tensor, states: torch.Tensor,

@@ -26,7 +26,9 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      K5 run in the instance their wrapper picks (the stream staged in a
      shared-memory ring) and once more forced onto global loads, and a
      frame whose tables leave the ring no room takes that instance by
-     itself; all integer, so the tolerance is zero.  Kernel and plain times
+     itself; K2's stream, step offsets and length, and the same bytes on
+     five more runs, there and at S = 1 over 2^16 + 5 steps; all integer,
+     so the tolerance is zero.  Kernel and plain times
      at the full-width shapes (CUDA events, min of 5 for the kernels; a
      plain version of the lane kernels runs once, for the comparison, and
      that run is its time);
@@ -58,11 +60,13 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
   own shapes (K5 in both instances) and time both.
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
-probe's on its own run; its time, its plain version's, and its bound: the larger of the bytes it must
-move at 3.35 TB/s and its integer operations at 67 T/s, the published
-rates of the H100 SXM), then as its last line {"ok": true, "device":
-{...}}.  Any failure exits non-zero and prints no result; so does a
-machine without CUDA.  Imports no JAX.
+probe's on its own run; its time, its plain version's, and its bound: the
+larger of the bytes it must move at 3.35 TB/s and its integer operations
+at 67 T/s, the published rates of the H100 SXM; for the scans K1 and K6
+also the chain bound, T times the probe's clocks of one warp's dependent
+encode step at the SM's top clock), then as its last line {"ok": true,
+"device": {...}}.  Any failure exits non-zero and prints no result; so
+does a machine without CUDA.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -83,6 +87,7 @@ LANE_FIXTURES = ROOT / "tests" / "fixtures" / "lane"
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
 RUNS, PLAIN_RUNS = 5, 1
+PLACE_REPEATS = 5  # K2 reruns that must write the same bytes
 DEVICE = "cuda"
 # published rates of the H100 SXM: device memory, and 32-bit arithmetic
 # outside the tensor cores
@@ -280,13 +285,17 @@ def compare(name: str, where: str, got, want) -> int:
     return err
 
 
-def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
-    """The scan (K1 or K6), K2, the layout's decode (K3 or K5) and, where
-    the per-slot table fits, K4 of st against their plain versions;
-    returns per-kernel max_abs_err (and ms / plain_ms and the bound when
-    timed: CUDA events, min of RUNS for a kernel; a plain version runs
-    once, for the comparison, and that run is timed).  plain_search=False holds K3 against K4's output
-    instead of its own plain version (the byte path's long streams)."""
+def check_kernels(st: Stage, timed: bool, plain_search: bool = True,
+                  step_ns: float | None = None) -> dict:
+    """The scan (K1 or K6), K2 (its stream, step offsets and length, and
+    the same bytes on PLACE_REPEATS more runs), the layout's decode (K3 or
+    K5) and, where the per-slot table fits, K4 of st against their plain
+    versions; returns per-kernel max_abs_err (and ms / plain_ms and the
+    bound when timed: CUDA events, min of RUNS for a kernel; a plain
+    version runs once, for the comparison, and that run is timed; with
+    step_ns, the probe's ns per dependent encode step, the scan's chain
+    bound).  plain_search=False holds K3 against K4's output instead of its
+    own plain version (the byte path's long streams)."""
     from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
     where = f"at S={st.S}"
     grouped = isinstance(st.enc, tables.GroupedEncDevice)
@@ -318,16 +327,21 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
     res[scan[0]] = {"max_abs_err": compare(scan[0], where, (packed, states),
                                            plain(scan[0], scan[2], *sargs))}
 
-    round_base, total = lane_codec.encode_totals(packed, st.nb, st.n)
-    total = int(total)
-    args = (packed, st.nb, st.excw, st.n, round_base, total)
-    stream = place.place(*args)
-    res["place"] = {"max_abs_err": compare(
-        "place", where, stream,
-        plain("place", lane_codec.place_plain, *args))}
+    pargs = (packed, st.nb, st.excw, st.n)
+    stream, step_base, total = place.place(*pargs)
+    want = plain("place", lane_codec.place_plain, *pargs)
+    require(total == want[2], f"place: {total} bytes, the plain version "
+                              f"{want[2]} {where}")
+    res["place"] = {"max_abs_err": compare("place", where,
+                                           (stream, step_base), want[:2])}
+    # the look-back orders only when blocks learn their offsets: the same
+    # bytes on every run
+    for _ in range(PLACE_REPEATS):
+        require(torch.equal(place.place(*pargs, total)[0], stream),
+                f"place wrote other bytes on a repeated run {where}")
 
     kernels = {scan[0]: lambda: scan[1](*sargs),
-               "place": lambda: place.place(*args)}
+               "place": lambda: place.place(*pargs, total)}
     out = None
     if st.direct is not None:
         xargs = (stream, states, st.direct, st.n, st.T)
@@ -355,7 +369,7 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
         moved = {
             scan[0]: nbytes(st.mapped, packed, states, *[
                 t for t in vars(st.enc).values() if torch.is_tensor(t)]),
-            "place": nbytes(packed, st.nb, st.excw, round_base, stream)}
+            "place": nbytes(packed, st.nb, st.excw, step_base, stream) + 8}
         for name, tab in ((dec[0], st.dec), ("decode_direct", st.direct)):
             if tab is not None:
                 moved[name] = 4 * items + nbytes(stream, states, *[
@@ -367,6 +381,8 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True) -> dict:
             res[name].update(bound(
                 name, moved[name], items,
                 getattr(tab, "levels", getattr(tab, "depth", 0))))
+        if step_ns is not None:  # T dependent encode steps, one after another
+            res[scan[0]]["chain_bound_ms"] = st.T * step_ns / 1e6
     return res
 
 
@@ -412,6 +428,31 @@ def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
     return res
 
 
+def check_place_long() -> dict:
+    """K2 at S = 1 over 2^16 + 5 steps (far more chunks than blocks in
+    flight, most of them writing no byte) against its plain version, and
+    the same bytes on PLACE_REPEATS more runs."""
+    from ans_tpu_torch.ops import lane_codec, place
+    T, S = (1 << 16) + 5, 1
+    rng = np.random.default_rng(14)
+    rc = np.where(rng.random((T, S)) < 0.3, rng.integers(1, 4, (T, S)), 0)
+    nb = np.where(rng.random((T, S)) < 0.2, rng.integers(0, 4, (T, S)), 0)
+    packed, nb, excw = (torch.from_numpy(a.astype(np.int32)).to(DEVICE) for a
+                        in (rng.integers(0, 1 << 24, (T, S)) | (rc << 24),
+                            nb, rng.integers(0, 1 << 24, (T, S))))
+    stream, step_base, total = place.place(packed, nb, excw, T)
+    want = lane_codec.place_plain(packed, nb, excw, T)
+    require(total == want[2], f"place at S=1: {total} bytes, the plain "
+                              f"version {want[2]}")
+    err = compare("place", "at S=1 over 2^16 steps", (stream, step_base),
+                  want[:2])
+    for _ in range(PLACE_REPEATS):
+        require(torch.equal(place.place(packed, nb, excw, T, total)[0],
+                            stream),
+                "place wrote other bytes on a repeated run at S=1")
+    return {"place": {"max_abs_err": err}}
+
+
 def full_block_frame() -> np.ndarray:
     """5500 symbols over M = 2^16: 219 KB of per-slot tables, which leave
     the stream's ring no room in K4's shared memory."""
@@ -432,8 +473,7 @@ def check_full_block() -> dict:
     enc, (mapped, nb, excw) = _stage(xt, zero, zero, n, nf, True, S)
     T = mapped.shape[0]
     packed, states = encode.encode_scan(mapped, n, enc)
-    round_base, total = lane_codec.encode_totals(packed, nb, n)
-    stream = place.place(packed, nb, excw, n, round_base, int(total))
+    stream, _, _ = place.place(packed, nb, excw, n)
     table = tables.build_dec_table(nf)
     direct = tables.to_device(tables.materialize_slots(table), DEVICE)
     before = decode.instance_launches["decode_direct"]["global"]
@@ -472,6 +512,11 @@ def check_probe(card: str) -> dict:
     print(f"kernels == plain, {len(probe.CHAINS)} probe chains at 32 and "
           f"1024 threads, {PROBE_COMPARE_ITERS * probe.UNROLL} ops deep: "
           f"op_probe max_abs_err {err}")
+    # one warp's dependent encode steps: what K1's and K6's chain bound is
+    # made of
+    step = probe.time_chain("encode_step", 32, PROBE_RUN_ITERS // 4, inp)
+    print(f"{card} encode_step at 32 threads: {step['clocks_per_op']:.1f} "
+          f"clocks a step")
     del inp
     probe.launches = 0
     require(probe.main(["--iters", str(PROBE_RUN_ITERS)]) == 0,
@@ -486,7 +531,8 @@ def check_probe(card: str) -> dict:
           f"by its own run")
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": None, "bound_by": "operations", "launches": launches}
+            "bound_ms": None, "bound_by": "operations", "launches": launches,
+            "encode_step_clocks": step["clocks_per_op"]}
 
 
 def merge_errs(total: dict, res: dict) -> None:
@@ -498,9 +544,12 @@ def print_timed(card: str, where: str, res: dict) -> None:
     for name, r in res.items():
         plain = ("not timed" if r["plain_ms"] is None
                  else f"{r['plain_ms']:.3f} ms")
+        chain = (f", chain bound {r['chain_bound_ms']:.4f} ms"
+                 if "chain_bound_ms" in r else "")
         print(f"{card} {name} at the shapes of {where}: kernel "
               f"{r['ms']:.3f} ms, plain {plain}, bound {r['bound_ms']:.4f} "
-              f"ms by {r['bound_by']}, max_abs_err {r['max_abs_err']}")
+              f"ms by {r['bound_by']}{chain}, max_abs_err "
+              f"{r['max_abs_err']}")
 
 
 def check_fixtures() -> int:
@@ -763,6 +812,11 @@ def main() -> int:
     print("kernels == plain, values of every byte length at n=2^20: "
           + ", ".join(f"{k} max_abs_err {v['max_abs_err']}"
                       for k, v in res.items()))
+    res = check_place_long()
+    merge_errs(errs, res)
+    print(f"kernels == plain, place at S=1 over 2^16 + 5 steps, "
+          f"{1 + PLACE_REPEATS} runs with the same bytes: max_abs_err "
+          f"{res['place']['max_abs_err']}")
     res = check_full_block()
     merge_errs(errs, res)
     print("kernels == plain, a frame that fills the block (sigma 5500, "
@@ -781,8 +835,18 @@ def main() -> int:
 
     full = bench_input(FULL_N, FULL_SEED)
     rec = find_record(LANE_FIXTURES / "fullwidth.json", "ANSfold-2", full)
+    # a step's clocks over the SM's top clock (the event time of the probe's
+    # short launch is mostly its set-up)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    step_ns = pres["encode_step_clocks"] * 1e3 / mhz
+    print(f"{card} chain bound of a scan step: "
+          f"{pres['encode_step_clocks']:.1f} clocks at {mhz:.0f} MHz = "
+          f"{step_ns:.2f} ns")
     kres = check_kernels(Stage(AnsFold(2, device=DEVICE), full, FULL_LANES),
-                         timed=True)
+                         timed=True, step_ns=step_ns)
     merge_errs(errs, kres)
     print_timed(card, "the main path, n=2^25, S=4096", kres)
     torch.cuda.synchronize()
@@ -805,7 +869,7 @@ def main() -> int:
                             find_record(zrec, "ANSfold-7", z20), "grouped",
                             "grouped")
     gres = check_kernels(Stage(AnsFold(7, device=DEVICE), z20, FULL_LANES),
-                         timed=True)
+                         timed=True, step_ns=step_ns)
     merge_errs(errs, gres)
     print_timed(card, "ANSfold-7, zipf20, n=2^25, S=4096", gres)
 
@@ -814,7 +878,7 @@ def main() -> int:
     run_codec(card, "ANS", z20, find_record(zrec, "ANS", z20), "search",
               "search")
     ares = check_kernels(Stage(AnsInt(device=DEVICE), z20, FULL_LANES),
-                         timed=True)
+                         timed=True, step_ns=step_ns)
     merge_errs(errs, ares)
     print_timed(card, "ANS, zipf20, n=2^25, S=4096", ares)
 
@@ -823,7 +887,7 @@ def main() -> int:
     run_codec(card, "ANS", dense, find_record(zrec, "ANS", dense), "grouped",
               "grouped")
     dres = check_kernels(Stage(AnsInt(device=DEVICE), dense, FULL_LANES),
-                         timed=True)
+                         timed=True, step_ns=step_ns)
     merge_errs(errs, dres)
     print_timed(card, "ANS, dense22, n=2^22, S=4096", dres)
     del dense
@@ -838,7 +902,7 @@ def main() -> int:
     print(f"{card} bytesplit_encode, streamvbyte format, same input: "
           f"kernel {sres['bytesplit_encode']['svb_ms']:.3f} ms")
     bres = check_kernels(byte_stage(z20, FULL_LANES), timed=True,
-                         plain_search=False)
+                         plain_search=False, step_ns=step_ns)
     merge_errs(errs, bres)
     print_timed(card, "AnsByte on the vbyte stream of zipf20, S=4096", bres)
     del z20
@@ -866,6 +930,8 @@ def main() -> int:
          "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
          "bound_ms": timed[name]["bound_ms"],
          "bound_by": timed[name]["bound_by"], "library_ms": None,
+         **({"chain_bound_ms": timed[name]["chain_bound_ms"]}
+            if "chain_bound_ms" in timed[name] else {}),
          **({"note": "a probe: its work is the latency it measures, so it "
                      "has no work bound; no PyTorch call computes a "
                      "dependency chain of one primitive"}

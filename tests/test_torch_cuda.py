@@ -7,9 +7,13 @@ card, run them without the JAX conftest:
 
 chip_smoke.py covers the main paths at full width; these cover the edges:
 lane counts from 1 to 2^14 (one to sixteen lanes per decode thread),
-three renorm rounds, three exception bytes, corrupt streams, and for the
-grouped kernels K5/K6 one-group frames, ~2^12 groups, per-rank tables too
-large for shared memory and out-of-range ranks; for the direct kernel K4
+for K1 ragged scans, rows past n, absent symbols and tables in and out of
+shared memory, for K2 its step offsets on up to 2^17 steps, steps that
+write no byte and the same bytes on repeated runs, an encode path that
+calls no plain round totals, three renorm rounds, three exception bytes,
+corrupt streams, and for the grouped kernels K5/K6 one-group frames,
+~2^12 groups, per-rank tables too large for shared memory and
+out-of-range ranks; for the direct kernel K4
 tables past 48 KB, both slot orders and frames that do not fit; for the
 two instances of K3, K4 and K5 (the stream staged in a shared-memory ring,
 or read from device memory) every lane count, streams shorter than one
@@ -21,6 +25,7 @@ length, ragged sizes and corrupt streams; for the step probe every chain
 against its plain version.
 """
 
+import hashlib
 import json
 from pathlib import Path
 
@@ -80,10 +85,10 @@ def _encode_all(mapped, k, low, enc, n, S):
     packed, states = encode.encode_scan(m_ts, n, enc)
     pp, ps = lane_codec.encode_scan_plain(m_ts, n, enc)
     assert torch.equal(packed, pp) and torch.equal(states, ps)
-    rb, total = lane_codec.encode_totals(packed, nb_ts, n)
-    args = (packed, nb_ts, ex_ts, n, rb, int(total))
-    stream = place.place(*args)
-    assert torch.equal(stream, lane_codec.place_plain(*args))
+    stream, step_base, total = place.place(packed, nb_ts, ex_ts, n)
+    ws, wb, wt = lane_codec.place_plain(packed, nb_ts, ex_ts, n)
+    assert torch.equal(stream, ws) and torch.equal(step_base, wb)
+    assert total == wt
     return stream, states, T
 
 
@@ -171,6 +176,165 @@ def test_golden_fixture_on_card(cuda, rec):
 
 
 # --------------------------------------------------------------------------
+# the value-indexed scan K1 (encode_scan) and the placement K2 (place)
+# --------------------------------------------------------------------------
+
+def _value_table(sigma, seed, absent=0.0):
+    """An encode table over sigma symbols (a share `absent` of them with
+    frequency 0) and symbols drawn from it."""
+    rng = np.random.default_rng(seed)
+    nf = rng.integers(1, 40, size=sigma).astype(np.uint64)
+    nf[rng.random(sigma) < absent] = 0
+    nf[0] = max(int(nf[0]), 1)
+    M = 1 << int(np.ceil(np.log2(nf.sum())))
+    nf[0] += M - int(nf.sum())
+    return nf
+
+
+@pytest.mark.parametrize("sigma,absent", [(300, 0.0), (8192, 0.0),
+                                          (1546, 0.3), (20000, 0.5)])
+@pytest.mark.parametrize("S", [1, 32, 4096, 16384])
+def test_scan_matches_plain(cuda, S, sigma, absent):
+    """K1 at every lane count on ragged T (n ends mid-row and mid-tile),
+    with the table in shared memory (sigma up to 8192) or read through
+    __ldg (20000 rows), symbols of frequency 0 among the inputs (they
+    code as frequency 1), and symbols outside the table past n (never
+    read)."""
+    nf = _value_table(sigma, S + sigma, absent)
+    enc = tables.to_device(tables.build_enc_table(nf), cuda)
+    T = {1: 1000, 32: 77, 4096: 45, 16384: 33}[S]
+    n = (T - 1) * S + max(1, S // 3)
+    rng = np.random.default_rng(S)
+    syms = rng.integers(0, sigma, size=T * S).astype(np.int32)
+    syms[n:] = sigma + 7
+    m_ts = torch.from_numpy(syms.reshape(T, S)).to(cuda)
+    count = encode.launches
+    packed, states = encode.encode_scan(m_ts, n, enc)
+    assert encode.launches == count + 1
+    pp, ps = lane_codec.encode_scan_plain(m_ts, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+    assert absent == 0 or (nf[syms[:n]] == 0).any()
+
+
+@pytest.mark.parametrize("S,T,n", [(32, 40, 20 * 32 + 5), (4096, 70, 4096),
+                                   (100, 33, 1), (1, 64, 3)])
+def test_scan_rows_past_n(cuda, S, T, n):
+    """K1 on a staging with more steps than n needs: every row past n is a
+    pad (no bytes, the state kept), whole tiles of them included."""
+    enc = tables.to_device(tables.build_enc_table(_value_table(512, T)),
+                           cuda)
+    syms = np.random.default_rng(T).integers(0, 512, size=T * S)
+    m_ts = torch.from_numpy(syms.astype(np.int32).reshape(T, S)).to(cuda)
+    packed, states = encode.encode_scan(m_ts, n, enc)
+    pp, ps = lane_codec.encode_scan_plain(m_ts, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+
+
+@pytest.mark.parametrize("S", [1, 4096])
+def test_scan_symbol_outside_the_table_raises(cuda, S):
+    enc = tables.to_device(tables.build_enc_table(_value_table(64, 1)), cuda)
+    T = 50
+    syms = np.zeros(T * S, np.int32)
+    syms[(T * S) // 2] = 64
+    m_ts = torch.from_numpy(syms.reshape(T, S)).to(cuda)
+    with pytest.raises(ValueError, match="outside the table"):
+        encode.encode_scan(m_ts, T * S, enc)
+    encode.encode_scan(m_ts, (T * S) // 2, enc)  # past n: not read
+
+
+def _place_inputs(T, S, seed, ne=3, busy=0.3):
+    """(packed, nb, excw) on the card: most steps write no byte, a few
+    lanes of the others renormalise or carry up to `ne` exception bytes."""
+    rng = np.random.default_rng(seed)
+    on = rng.random(T) < busy
+    rc = np.where(on[:, None] & (rng.random((T, S)) < 0.3),
+                  rng.integers(1, 4, size=(T, S)), 0)
+    nb = np.where(on[:, None] & (rng.random((T, S)) < 0.3),
+                  rng.integers(0, ne + 1, size=(T, S)), 0)
+    packed = rng.integers(0, 1 << 24, size=(T, S)) | (rc << 24)
+    low = rng.integers(0, 1 << 24, size=(T, S))
+    return tuple(torch.from_numpy(a.astype(np.int32)).to("cuda")
+                 for a in (packed, nb, low))
+
+
+def _place_checked(packed, nb, excw, n):
+    count = place.launches
+    stream, step_base, total = place.place(packed, nb, excw, n)
+    assert place.launches == count + 1
+    ws, wb, wt = lane_codec.place_plain(packed, nb, excw, n)
+    assert total == wt and torch.equal(step_base, wb)
+    assert torch.equal(stream, ws)
+    return stream, step_base, total
+
+
+@pytest.mark.parametrize("S,T,busy", [
+    (1, 1 << 16, 0.3), (1, (1 << 17) + 3, 1.0), (32, 5000, 0.3),
+    (100, 300, 0.5), (2048, 33, 0.3), (4096, 40, 1.0), (16384, 9, 0.5),
+    (256, 2000, 0.0)])
+def test_place_matches_plain(cuda, S, T, busy):
+    """K2 against its plain version, step offsets and length included: more
+    steps than blocks in flight (S = 1: 2^16 and 2^17 steps), chunks of
+    several steps a block (S < 1024), steps that write no byte, an input
+    that writes none, and n ending mid-row."""
+    packed, nb, excw = _place_inputs(T, S, S + T, busy=busy)
+    n = (T - 1) * S + max(1, S // 3)
+    _, step_base, total = _place_checked(packed, nb, excw, n)
+    assert (total == 0) == (busy == 0)
+    sizes = torch.diff(step_base, append=step_base.new_tensor([total]))
+    assert busy == 1.0 or bool((sizes == 0).any())
+
+
+@pytest.mark.parametrize("S,T", [(1, 1 << 16), (4096, 8192)])
+def test_place_same_bytes_every_run(cuda, S, T):
+    """The look-back changes only the order in which blocks learn their
+    offsets: five runs write the same bytes, at S = 1 with 2^16 steps and
+    at the main path's full width."""
+    packed, nb, excw = _place_inputs(T, S, 7, busy=1.0)
+    n = T * S
+    want, step_base, total = _place_checked(packed, nb, excw, n)
+    digest = hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()
+    for _ in range(5):
+        stream, sb, got = place.place(packed, nb, excw, n, total)
+        assert got == total and torch.equal(sb, step_base)
+        assert hashlib.sha256(
+            stream.cpu().numpy().tobytes()).hexdigest() == digest
+
+
+def test_place_refuses_a_wrong_total(cuda):
+    packed, nb, excw = _place_inputs(100, 64, 3, busy=1.0)
+    _, _, total = place.place(packed, nb, excw, 6400)
+    for wrong in (total - 1, total + 1):
+        with pytest.raises(ValueError, match="section plan"):
+            place.place(packed, nb, excw, 6400, wrong)
+    with pytest.raises(ValueError, match="lanes"):
+        z = torch.zeros((2, place.MAX_LANES * 2), dtype=torch.int32,
+                        device=cuda)
+        place.place(z, z, z, z.numel())
+
+
+@pytest.mark.parametrize("name", ["ANSfold-2", "ANSfold-8"])
+def test_prepared_encoder_calls_no_encode_totals(cuda, name, monkeypatch):
+    """On the card the encode path is the scan and K2 alone: the plain
+    round totals are never called, by the one-shot encode, the prepared
+    encoder's set-up or its calls."""
+    from ans_tpu_torch import models
+    x = (_values(50000, 3) if name == "ANSfold-2" else
+         np.random.default_rng(1).integers(0, 1 << 15, size=50000).astype(
+             np.uint32))
+    want = models.get(name, lanes=256, device="cpu").encode(x)
+
+    def refuse(*args, **kw):
+        raise AssertionError("encode_totals was called on the card")
+    monkeypatch.setattr(lane_codec, "encode_totals", refuse)
+    assert models.get(name, lanes=256, device=cuda).encode(x) == want
+    counts = (encode.launches + encode.grouped_launches, place.launches)
+    pe = models.prepare_encoder(name, x, lanes=256, device=cuda)
+    assert pe.prelude + pe.to_bytes(*pe()) == want
+    assert (encode.launches + encode.grouped_launches,
+            place.launches) == (counts[0] + 2, counts[1] + 2)
+
+
+# --------------------------------------------------------------------------
 # the grouped kernels: K6 (encode_scan_grouped) and K5 (decode_grouped)
 # --------------------------------------------------------------------------
 
@@ -182,8 +346,9 @@ def _grouped_run(m_ts, nb_ts, ex_ts, n, enc, dec):
     packed, states = encode.encode_scan_grouped(m_ts, n, enc)
     pp, ps = lane_codec.encode_scan_grouped_plain(m_ts, n, enc)
     assert torch.equal(packed, pp) and torch.equal(states, ps)
-    rb, total = lane_codec.encode_totals(packed, nb_ts, n)
-    stream = place.place(packed, nb_ts, ex_ts, n, rb, int(total))
+    stream, step_base, total = place.place(packed, nb_ts, ex_ts, n)
+    ws, wb, wt = lane_codec.place_plain(packed, nb_ts, ex_ts, n)
+    assert torch.equal(stream, ws) and torch.equal(step_base, wb)
     out = decode.decode_grouped(stream, states, dec, n, T)
     assert torch.equal(out, lane_codec.decode_grouped_plain(stream, states,
                                                             dec, n, T))

@@ -189,8 +189,7 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_instance():
     syms = torch.from_numpy(ranks.reshape(T, S))
     packed, states = lane_codec.encode_scan_grouped_plain(syms, n, enc)
     zero = torch.zeros_like(packed)
-    rb, total = lane_codec.encode_totals(packed, zero, n)
-    stream = lane_codec.place_plain(packed, zero, zero, n, rb, int(total))
+    stream, _, _ = lane_codec.place_plain(packed, zero, zero, n)
     before = decode.grouped_launches
     outs = [decode.decode_grouped(stream, states, t, n, T, instance=i)
             for i in (None, "ring", "global")]
@@ -208,7 +207,27 @@ def test_bench_steps_substitutions_match_the_sources():
     patches = [bench_steps.LANE_AFTER_LANE, bench_steps.SCALAR_STORES,
                bench_steps.REGISTER_ROWS, *bench_steps.REGISTER_LAUNCH,
                *bench_steps.FOUR_LOOKUP_WARPS, bench_steps.chain_warps(2),
-               bench_steps.NO_LOOKUPS, bench_steps.NO_CHAIN]
+               bench_steps.NO_LOOKUPS, bench_steps.NO_CHAIN,
+               bench_steps.BYTE_STORES, *bench_steps.FOUR_LANES_A_THREAD,
+               bench_steps.NARROW_LOOK_BACK, bench_steps.NO_LOOK_BACK,
+               bench_steps.TWO_STEPS_A_CHUNK, bench_steps.BLOCK_INDEX,
+               bench_steps.RELAXED_PUBLISH, *bench_steps.TIMELINE,
+               bench_steps.STAGE_UNROLLED, bench_steps.PAUSE,
+               *bench_steps.LOOK_BACK_FIRST]
     for fname, old, new in patches:
         assert (build.CSRC / fname).read_text().count(old) == 1, (fname, old)
         assert new != old
+
+
+def test_bench_steps_earlier_sources_stand_beside_the_kernels():
+    """The earlier forms of K1 and K2 that bench_steps copies over its copy
+    of csrc/ export the C entry points the kernels had, and no codec path
+    builds them (build.py reads csrc/ alone)."""
+    for name in ("encode_scan", "place"):
+        text = (bench_steps.EARLIER / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}(' in text
+        assert '#include "common.cuh"' in text
+        assert bench_steps.EARLIER != build.CSRC
+    assert "round_base" in (bench_steps.EARLIER / "place.cu").read_text()
+    assert '#include "encode_ahead.cuh"' not in (
+        bench_steps.EARLIER / "encode_scan.cu").read_text()

@@ -1,7 +1,10 @@
-"""K2's plain version (lane_codec.place_plain) and the round totals
+"""K2's plain version (lane_codec.place_plain: the stream, the stream
+offset of every step and the stream's length) and the round totals
 (lane_codec.encode_totals) against the Pallas placement run in interpret
-mode (+ sections_to_stream) and the XLA scatter placement
-(lane_codec.place_stream_packed), across several sections."""
+mode (+ sections_to_stream), the XLA scatter placement
+(lane_codec.place_stream_packed) and ans_tpu's encode_totals, across
+several sections, lane counts, steps that write no byte and three
+exception rounds."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,9 +78,12 @@ def test_plain_place_matches_pallas(kind, S, n, cap):
     np.testing.assert_array_equal(rb.numpy(), np.asarray(jrb))
     assert int(tot) == jtot == len(want)
     before = place.launches
-    stream = place.place(pk, nb, excw, n, rb, int(tot))
+    for total in (None, jtot):
+        stream, step_base, got = place.place(pk, nb, excw, n, total)
+        np.testing.assert_array_equal(stream.numpy(), want)
+        np.testing.assert_array_equal(step_base.numpy(), np.asarray(jrb)[::6])
+        assert got == jtot
     assert place.launches == before == 0
-    np.testing.assert_array_equal(stream.numpy(), want)
 
 
 @pytest.mark.parametrize("kind,S,n", [("zipf", 32, 5000), ("wide", 1, 300),
@@ -108,16 +114,82 @@ def test_plain_place_matches_scatter(kind, S, n):
     rb, tot = lane_codec.encode_totals(pk, nb, n)
     np.testing.assert_array_equal(rb.numpy()[::6], np.asarray(xsb))
     assert int(tot) == int(xtot) == int(ptot)
-    stream = place.place(pk, nb, excw, n, rb, int(tot)).numpy()
+    stream, step_base, got = place.place(pk, nb, excw, n)
+    np.testing.assert_array_equal(step_base.numpy(), np.asarray(xsb))
+    assert got == int(tot)
+    stream = stream.numpy()
     np.testing.assert_array_equal(stream, np.asarray(xs)[:int(xtot)])
     np.testing.assert_array_equal(stream, np.asarray(ps)[:int(ptot)])
 
 
 def test_place_checks_shapes():
     pk = torch.zeros((4, 8), dtype=torch.int32)
-    rb = torch.zeros(24, dtype=torch.int64)
     with pytest.raises(ValueError):
-        place.place(pk, pk[:3], pk, 32, rb, 0)
+        place.place(pk, pk[:3], pk, 32)
     with pytest.raises(ValueError):
-        place.place(pk, pk, pk, 32, rb[:6], 0)
-    assert place.place(pk, pk, pk, 32, rb, 0).numel() == 0
+        place.place(pk, pk, pk.to(torch.int64), 32)
+    with pytest.raises(ValueError, match="section plan"):
+        place.place(pk, pk, pk, 32, 1)
+    stream, step_base, total = place.place(pk, pk, pk, 32, 0)
+    assert stream.numel() == 0 and total == 0
+    assert step_base.tolist() == [0, 0, 0, 0]
+
+
+def _sparse_words(T, S, seed, ne):
+    """(packed, nb, excw) of T x S positions where most steps write no
+    byte: a few lanes renormalise (rc 1-3) or carry exception bytes (nb
+    up to `ne`), in a few steps."""
+    rng = np.random.default_rng(seed)
+    busy = rng.random(T) < 0.3
+    rc = np.where(busy[:, None] & (rng.random((T, S)) < 0.2),
+                  rng.integers(1, 4, size=(T, S)), 0)
+    nb = np.where(busy[:, None] & (rng.random((T, S)) < 0.2),
+                  rng.integers(0, ne + 1, size=(T, S)), 0)
+    low = rng.integers(0, 1 << 24, size=(T, S))
+    packed = (rng.integers(0, 1 << 24, size=(T, S)) | (rc << 24))
+    return (packed.astype(np.int32), nb.astype(np.int32),
+            low.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,S,n", [
+    ("sparse", 1, 3000), ("sparse", 32, 5000 - 3), ("sparse", 256, 9000),
+    ("sparse", 4096, 3 * 4096 + 5), ("silent", 128, 2000),
+    ("zipf", 1, 400), ("wide", 32, 4001), ("wide", 1024, 20000)])
+def test_plain_step_offsets_match_encode_totals(kind, S, n):
+    """The plain placement's step offsets and length are ans_tpu's
+    round_base[::6] and total, on steps that write no byte, whole inputs
+    that write none, and three exception rounds."""
+    T = jlc.lane_steps(n, S)
+    if kind in ("sparse", "silent"):
+        packed, k_ts, low = _sparse_words(T, S, S + n, 3 if kind == "sparse"
+                                          else 0)
+        if kind == "silent":
+            packed &= 0xFFFFFF
+        pk, nb, excw = map(torch.from_numpy, (packed, k_ts, low))
+    else:  # the port's scan: the Pallas one needs S a multiple of 128
+        values = _values(kind, n, 2)
+        mapped = map_np.fold_map(values, 2)
+        k, b = map_np.fold_exceptions(values, 2)
+        et = jtables.build_enc_table(adjust_freqs(
+            np.bincount(mapped).astype(np.uint64), int(mapped.max()), True,
+            1))
+        pad = T * S - n
+        k_ts = np.pad(k, (0, pad)).reshape(T, S)
+        packed, _ = encode.encode_scan(
+            torch.from_numpy(np.pad(mapped, (0, pad)).reshape(T, S).astype(
+                np.int32)), n, tables.to_device(et, "cpu"))
+        pk, nb, excw = _port_args(packed.numpy(), k_ts,
+                                  np.pad(b, ((0, pad), (0, 0))).reshape(
+                                      T, S, 3))
+        assert int(k_ts.max()) == 3 or kind != "wide"
+    jrb, jtot = jlc.encode_totals(jnp.asarray(pk.numpy()),
+                                  jnp.asarray(nb.numpy()), jnp.int32(n),
+                                  S=S, T=T)
+    jsteps = np.asarray(jrb)[::6]
+    stream, step_base, total = place.place(pk, nb, excw, n)
+    np.testing.assert_array_equal(step_base.numpy(), jsteps)
+    assert total == int(jtot) == stream.numel()
+    assert (total == 0) == (kind == "silent")
+    if kind == "sparse":  # steps with no byte, and steps with some
+        sizes = np.diff(np.append(jsteps, total))
+        assert (sizes == 0).any() and (sizes > 0).any()
