@@ -1,10 +1,11 @@
 """Time the design steps of the kernels apart, on one CUDA card: K5
 (csrc/decode_grouped.cu) and K6 (csrc/encode_scan_grouped.cu) on the
 grouped path, K1 (csrc/encode_scan.cu) and K2 (csrc/place.cu) on the
-main path and K2 on the grouped path.
+main path and K2 on the grouped path; K7 (csrc/bytesplit_encode.cu) and
+K9 (csrc/vbyte_decode.cu) on the byte path.
 
     python3 -m ans_tpu_torch.bench_steps [--out FILE] [--quick] [--baseline]
-        [--kernels K1,K2,K5,K6]
+        [--kernels K1,K2,K5,K6,K7,K9]
 
 The sources keep one form of each kernel.  This script rebuilds the
 earlier forms from them: it copies csrc/ into the build directory, applies
@@ -13,8 +14,8 @@ that has moved on fails here and not silently), builds the copy and times
 it beside the sources as they are, in one process on one card.  What needs
 no other source is set through the wrappers: the instance ("global") and
 the bucket level (a one-bucket table with the full search's levels).  The
-earlier forms of K1 and K2 differ from the sources throughout: their
-sources are kept whole in ans_tpu_torch/earlier_csrc/ and copied over the
+earlier forms of K1, K2, K7 and K9 differ from the sources throughout:
+their sources are kept whole in ans_tpu_torch/earlier_csrc/ and copied over the
 copy of csrc/ (no codec path builds them).
 
 K5, cumulative, from the step of csrc/lockstep.cuh on global loads to the
@@ -72,20 +73,58 @@ K2:
   as it is     the single pass, 16 lanes a thread (blocks of 256 threads
                at S = 4096), 16-byte stores on the run's interior
 
+K7 (vbyte format unless a row says otherwise) and K9, one launch each, a
+chained scan with decoupled look-back (csrc/lookback.cuh):
+  earlier      three launches (tile totals, one block scanning them, the
+               write or decode pass reading the input again; K7 stores its
+               bytes one at a time, K9 walks back in device memory)
+  a branch before each load  the first form of the loads: each 16-byte
+               load behind its own branch and used at once, so that each
+               waited for the one before
+  scalar loads  element by element (K7) or byte by byte (K9) loads
+  values read again  K7's staging reads the values again (from L2): a
+               second pass over the input inside the one launch
+  walk-back in global memory  K9's 8 bytes before each granule read from
+               device memory instead of the chunk in shared memory
+  values by element, after the look-back  K9 staging only its
+               terminators' positions, then rebuilding four neighbouring
+               elements a thread from the 8 bytes that end at each
+  byte stores / 4-byte stores  the staged run written without its
+               16-byte interior
+  scattered, no staging  K7 with no staging: each thread stores its bytes
+               straight into the stream after the look-back
+  look-back before staging  warp 0 looks back while the others stage
+  narrow / wide look-back  one / eight status words a lane (32 / 256
+               chunks a round trip), where the kernels read two
+  no look-back  every chunk at offset 0 (wrong by design): what the
+               look-back costs
+  registers uncapped  four blocks an SM instead of five
+  chunks of ...  blocks of other sizes, 16 items a thread for K7 and 32
+               bytes for K9, as many threads an SM
+  timeline     as for K2, the kernel as it is
+  as it is     K7 chunks of 4096 elements, K9 of 8192 bytes, 256
+               threads; K9 also on the stream at an odd address (byte
+               loads at its head and tail)
+Each K7 / K9 row times the launch alone (its status words zeroed in front,
+on buffers allocated once); the rows "through the wrapper" time the call
+chip_smoke.py times (allocations, the launch, the sync on the length or
+the flags).
+
 Cells: ANSfold-7 on zipf20 (n = 2^25, S = 4096: the grouped path) and ANS on
 dense22 (n = 2^22; K5's value table in global memory, K6 fed ranks) for K5,
 K6 and K2; ANSfold-2 on bench.py's input (n = 2^25, S = 4096: the main
-path) for K1 and K2.  Every variant's output is held against the final
-kernel's.  Times are CUDA
-events, min of 5 after a warm-up.  --baseline times only the kernels as
-they are, through calls every version of the port has (to time an older
-tree, copy this file into it).  Prints one line per variant with the
+path) for K1 and K2; zipf20 (n = 2^25) through K7 and its vbyte stream
+(64,162,199 bytes) through K9.  Every variant's output is held against the
+final kernel's.  Times are CUDA events, min of 5 after a warm-up.
+--baseline times only the kernels as they are, through calls every version
+of the port has (to time an older tree, copy this file into it).  Prints one line per variant with the
 card's name and power limit, then one JSON object.  Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes as ct
 import dataclasses
 import inspect
@@ -93,13 +132,14 @@ import json
 import shutil
 import subprocess
 import sys
+from unittest import mock
 
 import torch
 
 from .csrc import build
 from .inputs import bench_input, dense_input, zipf20_input
 from .models.ans import AnsFold, AnsInt, _stage
-from .ops import decode, encode, lane_codec, place, tables
+from .ops import bytesplit, decode, encode, lane_codec, place, tables
 
 RUNS = 5
 DEVICE = "cuda"
@@ -288,6 +328,447 @@ FOUR_LANES_A_THREAD = [
     ("place.cu", "constexpr int STEP_BLOCK = 256;",
      "constexpr int STEP_BLOCK = 1024;")]
 
+# K7 and K9 (csrc/bytesplit_encode.cu, csrc/vbyte_decode.cu): blocks of
+# `threads` threads, each holding as many threads an SM as the kernel as it
+# is (1280: five blocks of 256; an SM holds at most 32 blocks), so that the
+# chunk grows with the block
+def byte_threads(fname: str, threads: int):
+    blocks = min(32, max(1, 1280 // threads))
+    return [(fname, "constexpr int THREADS = 256;  // a block",
+             f"constexpr int THREADS = {threads};  // a block"),
+            (fname, "constexpr int MIN_BLOCKS = 5;",
+             f"constexpr int MIN_BLOCKS = {blocks};")]
+
+
+# K7 and K9: the registers not capped (four blocks of 256 an SM, not five)
+def uncapped(fname: str):
+    return (fname, "constexpr int MIN_BLOCKS = 5;",
+            "constexpr int MIN_BLOCKS = 1;")
+
+
+# K7 and K9: the look-back one status word a lane (32 chunks a round trip),
+# or eight (256, as K2 reads them), where it reads two; or none at all (every
+# chunk placed at 0: the output is wrong by design)
+NARROW_BYTE_LOOK_BACK = ("lookback.cuh", "constexpr int LOOK = 2;",
+                         "constexpr int LOOK = 1;")
+WIDE_BYTE_LOOK_BACK = ("lookback.cuh", "constexpr int LOOK = 2;",
+                       "constexpr int LOOK = 8;")
+NO_BYTE_LOOK_BACK = ("lookback.cuh", """\
+  const uint64_t ex = chunk == 0 ? 0 : look_back(status, chunk);
+""", """\
+  const uint64_t ex = chunk < 0 ? look_back(status, chunk) : 0;
+""")
+
+# K7 and K9: the first form of the loads, a branch before each 16-byte load
+# and its result used right after it, so that each waits for the one before
+K7_BRANCHED_LOADS = ("bytesplit_encode.cu", """\
+  if (vec && i0 - 4 * threadIdx.x + CHUNK <= n) {
+    uint4 q[GROUPS];
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g)
+      q[g] = __ldg(reinterpret_cast<const uint4*>(x + i0 + g * 4 * THREADS));
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g)
+      v[g][0] = q[g].x, v[g][1] = q[g].y, v[g][2] = q[g].z, v[g][3] = q[g].w;
+  } else {
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t i = i0 + g * 4 * THREADS + j;
+        const uint32_t y = __ldg(x + (i < n ? i : 0));
+        v[g][j] = i < n ? y : 0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g) {
+    cnt[g] = 0;
+""", """\
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g) {
+    const int64_t i = i0 + g * 4 * THREADS;
+    if (vec && i + 4 <= n) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(x + i));
+      v[g][0] = q.x, v[g][1] = q.y, v[g][2] = q.z, v[g][3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t y = __ldg(x + (i + j < n ? i + j : 0));
+        v[g][j] = i + j < n ? y : 0u;
+      }
+    }
+    cnt[g] = 0;
+""")
+K9_BRANCHED_LOADS = ("vbyte_decode.cu", """\
+  if (first >= 0 && first + CHUNK <= len) {
+#pragma unroll
+    for (int g = 0; g < GRANULES; ++g) {
+      q[g] = __ldg(reinterpret_cast<const uint4*>(
+          data + first + 16 * (g * THREADS + threadIdx.x)));
+      valid[g] = 0xFFFFu;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < GRANULES; ++g)
+      q[g] = load_edge(data, len, first + 16 * (g * THREADS + threadIdx.x),
+                       valid[g]);
+  }
+  uint32_t mine[GRANULES];  // a bit for each terminator in the stream
+  int cnt[lane::MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int g = 0; g < GRANULES; ++g) {
+""", """\
+  uint32_t mine[GRANULES];  // a bit for each terminator in the stream
+  int cnt[lane::MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int g = 0; g < GRANULES; ++g) {
+    const int64_t p = first + 16 * (g * THREADS + threadIdx.x);
+    if (p >= 0 && p + 16 <= len) {
+      q[g] = __ldg(reinterpret_cast<const uint4*>(data + p));
+      valid[g] = 0xFFFFu;
+    } else {
+      q[g] = load_edge(data, len, p, valid[g]);
+    }
+""")
+
+# K9: the values by element after the look-back: the block stages only its
+# terminators' positions before it, then a thread rebuilds four neighbouring
+# elements from the 8 bytes that end at each terminator and stores them
+K9_BY_ELEMENT = [
+    ("vbyte_decode.cu", "constexpr int SMEM = 16 + CHUNK + 4 * CHUNK;",
+     "constexpr int SMEM = 16 + CHUNK + 2 * CHUNK;"),
+    ("vbyte_decode.cu", """\
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    vbyte_decode_kernel(""",
+     """\
+// The 8 bytes that end at the chunk's byte p, out of shared memory (the
+// chunk's bytes behind their 16 bytes of halo): x holds bytes p-7 .. p-4,
+// y bytes p-3 .. p.
+__device__ __forceinline__ uint2 window_at(const uint8_t* sbytes, int p) {
+  const int b = 16 + p - 7;
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(sbytes) + (b >> 2);
+  const int sh = 8 * (b & 3);
+  return make_uint2(__funnelshift_r(s32[0], s32[1], sh),
+                    __funnelshift_r(s32[1], s32[2], sh));
+}
+
+// The value of the element whose terminator ends the 8 bytes w; `bad` is
+// set when more than four continuation bytes precede it (bytes outside the
+// stream read 0, so the count stops at the stream's start).
+__device__ __forceinline__ uint32_t value_by_element(uint2 w, bool& bad) {
+  // continuation bytes right before the terminator (byte 7)
+  const int k = __clz((terminators(w.x) | terminators(w.y) << 4) << 25);
+  bad |= k >= 5;
+  // the element's bytes, its first in the low byte
+  const uint64_t y = ((static_cast<uint64_t>(w.y) << 32) | w.x) >>
+                     (8 * (7 - min(k, 4)));
+  const uint32_t l = static_cast<uint32_t>(y);
+  const uint32_t h = static_cast<uint32_t>(y >> 32);
+  return k >= 5 ? 0u
+                : (l & 0x7Fu) | ((l >> 1) & 0x3F80u) | ((l >> 2) & 0x1FC000u) |
+                      ((l >> 3) & 0xFE00000u) | (h << 28);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    vbyte_decode_kernel("""),
+    ("vbyte_decode.cu", """\
+  // the scan's barriers made the granules and the halo visible: each
+  // granule's values from a window of its 16 bytes and the 8 before it
+  uint32_t* vals = reinterpret_cast<uint32_t*>(smem + 1 + CHUNK / 16);
+  int bad = CHUNK;  // the chunk's index of my first element past 5 bytes
+  uint32_t at = 0;
+#pragma unroll
+  for (int g = 0; g < GRANULES; ++g) {
+    const int idx = g * THREADS + threadIdx.x;
+    int r = at + excl[g];  // the chunk's index of the granule's first value
+    at += tot[g];
+    const uint2 before = *reinterpret_cast<const uint2*>(sbytes + 16 * idx + 8);
+    const uint4 q = smem[1 + idx];
+    const uint32_t w[7] = {before.x, before.y, q.x, q.y, q.z, q.w, 0};
+    // bytes outside the stream are 0, so a walk back stops at its start
+    const uint32_t win = terminators(w[0]) | terminators(w[1]) << 4 |
+                         terminators(w[2]) << 8 | terminators(w[3]) << 12 |
+                         terminators(w[4]) << 16 | terminators(w[5]) << 20;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (mine[g] >> j & 1) {
+        // continuation bytes before the terminator at window byte 8 + j
+        const uint32_t below = win & ((1u << (8 + j)) - 1);
+        const int k = 7 + j - (31 - __clz(below));
+        if (k >= 5) bad = min(bad, r);
+        vals[r++] = k >= 5 ? 0u : value_of(w, j + 1, min(k, 4));
+      }
+    }
+  }
+  const uint64_t ex = lookback::exclusive_prefix(status, chunk, agg);
+  if (threadIdx.x == 0) excl_s = ex;
+  __syncthreads();
+  const int64_t e0 = static_cast<int64_t>(excl_s);  // the chunk's first element
+  if (bad < CHUNK && e0 + bad < n) atomicOr(err, 2);
+  if (threadIdx.x == 0 && chunk == gridDim.x - 1) {
+    *total = e0 + agg;
+    if (e0 + agg < n) atomicOr(err, 1);
+  }
+
+  // the run out[e0, e1): 4-byte stores up to the first 16-byte boundary and
+  // after the last one, 16-byte stores between
+  const int64_t e1 = min(e0 + static_cast<int64_t>(agg), n);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(out);
+  const int64_t up = static_cast<int64_t>(
+      (((base + 4 * e0 + 15) & ~uintptr_t(15)) - base) >> 2);
+  const int64_t down =
+      static_cast<int64_t>((((base + 4 * e1) & ~uintptr_t(15)) - base) >> 2);
+  const int64_t a0 = min(up, max(e1, e0)), a1 = max(a0, down);
+  for (int64_t e = e0 + threadIdx.x; e < a0; e += THREADS)
+    out[e] = vals[e - e0];
+  for (int64_t e = a1 + threadIdx.x; e < e1; e += THREADS)
+    out[e] = vals[e - e0];
+  for (int64_t e = a0 + 4 * static_cast<int64_t>(threadIdx.x); e < a1;
+       e += 4 * THREADS) {
+    const uint32_t* src = vals + (e - e0);
+    *reinterpret_cast<uint4*>(out + e) =
+        make_uint4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+""",
+     """\
+  // the scan's barriers made the granules and the halo visible: each
+  // terminator's position in the chunk, in stream order
+  uint16_t* pos = reinterpret_cast<uint16_t*>(sbytes + 16 + CHUNK);
+  uint32_t at = 0;
+#pragma unroll
+  for (int g = 0; g < GRANULES; ++g) {
+    int r = at + excl[g];
+    at += tot[g];
+    const int p0 = 16 * (g * THREADS + threadIdx.x);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (mine[g] >> j & 1) pos[r++] = static_cast<uint16_t>(p0 + j);
+  }
+  const uint64_t ex = lookback::exclusive_prefix(status, chunk, agg);
+  if (threadIdx.x == 0) excl_s = ex;
+  __syncthreads();
+  const int64_t e0 = static_cast<int64_t>(excl_s);  // the chunk's first element
+  if (threadIdx.x == 0 && chunk == gridDim.x - 1) {
+    *total = e0 + agg;
+    if (e0 + agg < n) atomicOr(err, 1);
+  }
+
+  // the run out[e0, e1), each value from the 8 bytes that end at its
+  // terminator: 4-byte stores up to the first 16-byte boundary and after
+  // the last one, 16-byte stores of four neighbouring elements between
+  bool bad = false;  // one of my elements is longer than 5 bytes
+  const auto value = [&](int e) {
+    return value_by_element(window_at(sbytes, pos[e]), bad);
+  };
+  const int64_t e1 = min(e0 + static_cast<int64_t>(agg), n);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(out);
+  const int64_t up = static_cast<int64_t>(
+      (((base + 4 * e0 + 15) & ~uintptr_t(15)) - base) >> 2);
+  const int64_t down =
+      static_cast<int64_t>((((base + 4 * e1) & ~uintptr_t(15)) - base) >> 2);
+  const int64_t a0 = min(up, max(e1, e0)), a1 = max(a0, down);
+  for (int64_t e = e0 + threadIdx.x; e < a0; e += THREADS)
+    out[e] = value(static_cast<int>(e - e0));
+  for (int64_t e = a1 + threadIdx.x; e < e1; e += THREADS)
+    out[e] = value(static_cast<int>(e - e0));
+  for (int64_t e = a0 + 4 * static_cast<int64_t>(threadIdx.x); e < a1;
+       e += 4 * THREADS) {
+    const int i = static_cast<int>(e - e0);
+    *reinterpret_cast<uint4*>(out + e) =
+        make_uint4(value(i), value(i + 1), value(i + 2), value(i + 3));
+  }
+  if (bad) atomicOr(err, 2);
+}
+
+""")]
+
+# K7: element by element loads (no 16-byte loads)
+K7_SCALAR_LOADS = ("bytesplit_encode.cu", """\
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+""", """\
+  const bool vec = false;
+""")
+
+# K7: the values read again for the staging (from L2, where the first read
+# left them), as a second pass over the input would
+K7_READ_AGAIN = ("bytesplit_encode.cu", """\
+    const uint32_t key =
+        stage_group<VBYTE>(bytes, at + excl[g], v[g], i0 + g * 4 * THREADS, n);
+""", """\
+    if (vec && i0 + g * 4 * THREADS + 4 <= n) {
+      const uint4 q = __ldcg(
+          reinterpret_cast<const uint4*>(x + i0 + g * 4 * THREADS));
+      v[g][0] = q.x, v[g][1] = q.y, v[g][2] = q.z, v[g][3] = q.w;
+    }
+    const uint32_t key =
+        stage_group<VBYTE>(bytes, at + excl[g], v[g], i0 + g * 4 * THREADS, n);
+""")
+
+# K7: the run written with one-byte stores only (no 16-byte interior)
+K7_BYTE_STORES = ("bytesplit_encode.cu", """\
+  const int64_t a0 = min(up, p1), a1 = max(a0, down);
+""", """\
+  const int64_t a0 = p1, a1 = a0;
+""")
+
+K7_STAGING = """\
+  uint32_t at = 0;
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g) {
+    const uint32_t key =
+        stage_group<VBYTE>(bytes, at + excl[g], v[g], i0 + g * 4 * THREADS, n);
+    if (!VBYTE) keys[g * THREADS + threadIdx.x] = static_cast<uint8_t>(key);
+    at += tot[g];
+  }
+"""
+K7_LOOK_BACK = """\
+  const uint64_t ex = lookback::exclusive_prefix(status, chunk, agg);
+"""
+# K7: the look-back before the staging (warp 0 looks back while the others
+# stage)
+K7_LOOK_BACK_FIRST = [
+    ("bytesplit_encode.cu", K7_STAGING, ""),
+    ("bytesplit_encode.cu", K7_LOOK_BACK, K7_LOOK_BACK + K7_STAGING)]
+# K7: no staging: after the look-back each thread stores its bytes straight
+# into the stream, one byte at a time, as the earlier K7 did (vbyte only:
+# the control bytes are not staged either)
+K7_SCATTERED = [
+    ("bytesplit_encode.cu", K7_STAGING, ""),
+    ("bytesplit_encode.cu", """\
+  const int64_t p0 = static_cast<int64_t>(excl_s);
+""", """\
+  const int64_t p0 = static_cast<int64_t>(excl_s);
+  {
+    uint32_t at = 0;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      stage_group<VBYTE>(out + p0, at + excl[g], v[g],
+                         i0 + g * 4 * THREADS, n);
+      at += tot[g];
+    }
+  }
+"""),
+    ("bytesplit_encode.cu", """\
+  const int64_t p1 = p0 + agg;
+""", """\
+  const int64_t p1 = p0;
+""")]
+
+# K9: each thread's 8 bytes before its granule read from device memory (L1
+# or L2, where the neighbouring block's read left them) instead of shared
+# memory
+K9_GLOBAL_WALK = ("vbyte_decode.cu", """\
+    const uint2 before = *reinterpret_cast<const uint2*>(sbytes + 16 * idx + 8);
+""", """\
+    const uint2 before = bytes_before(data, first + 16 * idx);
+""")
+
+# K9: the granule read with 16 byte loads (no 16-byte load)
+K9_SCALAR_LOADS = ("vbyte_decode.cu", """\
+  if (first >= 0 && first + CHUNK <= len) {
+""", """\
+  if (false) {
+""")
+
+# K9: the run written with 4-byte stores only (no 16-byte interior)
+K9_WORD_STORES = ("vbyte_decode.cu", """\
+  const int64_t a0 = min(up, max(e1, e0)), a1 = max(a0, down);
+""", """\
+  const int64_t a0 = max(e1, e0), a1 = a0;
+""")
+
+K9_STAGING = """\
+  // the scan's barriers made the granules and the halo visible: each
+  // granule's values from a window of its 16 bytes and the 8 before it
+  uint32_t* vals = reinterpret_cast<uint32_t*>(smem + 1 + CHUNK / 16);
+  int bad = CHUNK;  // the chunk's index of my first element past 5 bytes
+  uint32_t at = 0;
+#pragma unroll
+  for (int g = 0; g < GRANULES; ++g) {
+    const int idx = g * THREADS + threadIdx.x;
+    int r = at + excl[g];  // the chunk's index of the granule's first value
+    at += tot[g];
+    const uint2 before = *reinterpret_cast<const uint2*>(sbytes + 16 * idx + 8);
+    const uint4 q = smem[1 + idx];
+    const uint32_t w[7] = {before.x, before.y, q.x, q.y, q.z, q.w, 0};
+    // bytes outside the stream are 0, so a walk back stops at its start
+    const uint32_t win = terminators(w[0]) | terminators(w[1]) << 4 |
+                         terminators(w[2]) << 8 | terminators(w[3]) << 12 |
+                         terminators(w[4]) << 16 | terminators(w[5]) << 20;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (mine[g] >> j & 1) {
+        // continuation bytes before the terminator at window byte 8 + j
+        const uint32_t below = win & ((1u << (8 + j)) - 1);
+        const int k = 7 + j - (31 - __clz(below));
+        if (k >= 5) bad = min(bad, r);
+        vals[r++] = k >= 5 ? 0u : value_of(w, j + 1, min(k, 4));
+      }
+    }
+  }
+"""
+K9_LOOK_BACK = """\
+  const uint64_t ex = lookback::exclusive_prefix(status, chunk, agg);
+"""
+# K9: the look-back before the values are rebuilt and staged
+K9_LOOK_BACK_FIRST = [
+    ("vbyte_decode.cu", K9_STAGING, ""),
+    ("vbyte_decode.cu", K9_LOOK_BACK, K9_LOOK_BACK + K9_STAGING)]
+
+
+def byte_timeline(fname: str, counted: str, first_write: str, end: str):
+    """K7 or K9 with a timeline: thread 0 of each block reads the global
+    timer at its start, after the ticket, after its loads, counts and block
+    scan, after staging, after the look-back (and the barrier behind it)
+    and at its end, and writes the six times past the scratch's words (the
+    caller gives a longer scratch)."""
+    tick = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[{}]));\n'
+    ticket = "  const int64_t chunk = lookback::take_ticket(ticket);\n"
+    return [
+        (fname, ticket, "  uint64_t clk[6];\n  " + tick.format(0) + ticket
+         + "  " + tick.format(1)),
+        (fname, counted, "  " + tick.format(2) + counted),
+        (fname, K7_LOOK_BACK, "  " + tick.format(3) + K7_LOOK_BACK),
+        (fname, first_write, first_write + "  " + tick.format(4)),
+        (fname, end, end[:-2] + "  " + tick.format(5) + """\
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 6; ++i)
+      status[gridDim.x + 3 + 6 * chunk + i] = clk[i];
+}
+""")]
+
+
+K7_TIMELINE = byte_timeline(
+    "bytesplit_encode.cu",
+    "  uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);\n",
+    "  const int64_t p0 = static_cast<int64_t>(excl_s);\n", """\
+        for (int k = c; k < m; ++k) control[c0 + k] = keys[k];
+      }
+    }
+  }
+}
+""")
+K9_TIMELINE = byte_timeline(
+    "vbyte_decode.cu",
+    "  // the scan's barriers made the granules and the halo visible: each\n",
+    "  const int64_t e0 = static_cast<int64_t>(excl_s);  // the chunk's first "
+    "element\n", """\
+        make_uint4(src[0], src[1], src[2], src[3]);
+  }
+}
+""")
+BYTE_TIMELINE_PHASES = ("ticket", "loads, counts and scan", "staging",
+                        "look-back", "writes")
+
+# the earlier K7's and K9's C entry points: tile totals and offsets as
+# scratch (ops/bytesplit.py _scratch, which K8 still uses)
+EARLIER_ENC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int] + [ct.c_void_p] * 6
+EARLIER_VB_DEC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int64] + [
+    ct.c_void_p] * 6
+
 # the earlier K2's C entry point: round_base in, one error flag out
 EARLIER_PLACE_ARGTYPES = [
     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int, ct.c_int,
@@ -400,7 +881,7 @@ class Variant:
     @staticmethod
     def _forget():
         for name in ("decode_grouped", "encode_scan_grouped", "encode_scan",
-                     "place"):
+                     "place", "bytesplit_encode", "vbyte_decode"):
             build._libs.pop(name, None)
 
 
@@ -495,16 +976,25 @@ def k2_timeline(cell, emit) -> None:
             raise RuntimeError(f"{cell.label}: K2 with its timeline places "
                                "wrongly")
         clk = stream[head:].cpu().numpy().view(np.int64).reshape(T, 6)
+    emit_timeline(cell, "K2", clk, TIMELINE_PHASES, emit)
+
+
+def emit_timeline(cell, kernel: str, clk, phases, emit) -> None:
+    """A kernel's timeline, (chunks, 6) global-timer readings: the median
+    of each phase over the blocks, the blocks' mean time, the kernel's
+    span, and how many blocks were in flight on average (their summed time
+    over the span)."""
+    import numpy as np
     clk = clk - clk[:, 0].min()
     span = clk[:, 5].max()
-    for i, phase in enumerate(TIMELINE_PHASES):
-        emit(cell, "K2", f"timeline: {phase} (median)",
+    for i, phase in enumerate(phases):
+        emit(cell, kernel, f"timeline: {phase} (median)",
              float(np.median(clk[:, i + 1] - clk[:, i])) / 1e6)
-    emit(cell, "K2", "timeline: a block (mean)",
+    emit(cell, kernel, "timeline: a block (mean)",
          float((clk[:, 5] - clk[:, 0]).mean()) / 1e6)
-    emit(cell, "K2", "timeline: span", float(span) / 1e6)
+    emit(cell, kernel, "timeline: span", float(span) / 1e6)
     recs_in_flight = float((clk[:, 5] - clk[:, 0]).sum() / span)
-    print(f"{cell.label}: K2 blocks in flight on average "
+    print(f"{cell.label}: {kernel} blocks in flight on average "
           f"{recs_in_flight:.1f}; start of every 1024th chunk (us): "
           f"{[round(float(x) / 1e3, 1) for x in clk[::1024, 0]]}")
 
@@ -556,6 +1046,250 @@ def k2_rows(cell, emit) -> None:
     with Variant("final", []):
         emit(cell, "K2", "as it is", time_place(
             cell, "as it is", lambda: place.place(*args, total)[0]))
+
+
+class ByteCell:
+    """The byte path's input on the card, with the vbyte and streamvbyte
+    streams K7 as it is writes (K9 reads the vbyte one)."""
+
+    def __init__(self, label: str, values):
+        self.label = label
+        self.x = torch.from_numpy(values.view("<i4")).to(DEVICE)
+        self.n = self.x.numel()
+        self.vb = bytesplit.vbyte_encode(self.x)
+        self.svb = bytesplit.svb_encode(self.x)
+
+
+def time_bytes(cell, kernel: str, what: str, fn, want, launch) -> float:
+    """fn() (the wrapper) -> what the kernel as it is gives (`want`),
+    checked; then launch() timed: the launch alone, its scratch zeroed in
+    front, none of the wrapper's host work or its sync."""
+    got = fn()
+    same = (all(torch.equal(a, b) for a, b in zip(got, want))
+            if isinstance(want, tuple) else torch.equal(got, want))
+    if not same:
+        raise RuntimeError(f"{cell.label}: {kernel} variant {what} differs")
+    return cuda_ms(launch)
+
+
+def k7_launch(x, vbyte: bool):
+    """K7's launch as its wrapper makes it, on buffers allocated once (so
+    inside the Variant that built it): the status fill, then the kernel."""
+    n = x.numel()
+    chunks = bytesplit.encode_chunks(n)
+    scratch = bytesplit.chained_scratch(chunks, x.device)
+    out = torch.empty((5 if vbyte else 4) * n, dtype=torch.uint8,
+                      device=x.device)
+    control = torch.empty(-(-n // 4), dtype=torch.uint8, device=x.device)
+    fn = build.function("bytesplit_encode", bytesplit._ENC_ARGTYPES)
+    args = (build.ptr(x), n, int(vbyte), build.ptr(out), build.ptr(control),
+            build.ptr(scratch), chunks, build.current_stream(x.device))
+
+    def go():
+        scratch.zero_()
+        build.check("bytesplit_encode", fn(*args))
+    return go
+
+
+def k9_launch(data, n: int):
+    """K9's launch as its wrapper makes it (see k7_launch)."""
+    chunks = bytesplit.decode_chunks(data.numel(), data.data_ptr())
+    scratch = bytesplit.chained_scratch(chunks, data.device)
+    out = torch.empty(n, dtype=torch.int32, device=data.device)
+    fn = build.function("vbyte_decode", bytesplit._VB_DEC_ARGTYPES)
+    args = (build.ptr(data), data.numel(), n, build.ptr(out),
+            build.ptr(scratch), chunks, build.current_stream(data.device))
+
+    def go():
+        scratch.zero_()
+        build.check("vbyte_decode", fn(*args))
+    return go
+
+
+def earlier_k7(x, vbyte: bool):
+    """The earlier K7 (built from earlier_csrc/ inside its Variant) on
+    buffers allocated once: (launch, result), launch() its three launches
+    alone, result() the launches and the sync on the stream's length, giving
+    what its wrapper gave."""
+    n = x.numel()
+    tot, off, total = bytesplit._scratch(n, x.device)
+    out = torch.empty((5 if vbyte else 4) * n, dtype=torch.uint8,
+                      device=x.device)
+    control = torch.empty(-(-n // 4), dtype=torch.uint8, device=x.device)
+    fn = build.function("bytesplit_encode", EARLIER_ENC_ARGTYPES)
+    args = (build.ptr(x), n, int(vbyte), build.ptr(tot), build.ptr(off),
+            build.ptr(out), build.ptr(control), build.ptr(total),
+            build.current_stream(x.device))
+
+    def launch():
+        build.check("bytesplit_encode", fn(*args))
+
+    def result():
+        launch()
+        stream = out[: int(total.item())]
+        return stream if vbyte else (control, stream)
+    return launch, result
+
+
+def earlier_k9(data, n: int):
+    """The earlier K9 as earlier_k7 gives K7: its flag word zeroed in front
+    of the launches, result() raising where its wrapper raised."""
+    tot, off, total = bytesplit._scratch(data.numel(), data.device)
+    out = torch.empty(n, dtype=torch.int32, device=data.device)
+    err = torch.zeros(1, dtype=torch.int32, device=data.device)
+    fn = build.function("vbyte_decode", EARLIER_VB_DEC_ARGTYPES)
+    args = (build.ptr(data), data.numel(), n, build.ptr(tot), build.ptr(off),
+            build.ptr(out), build.ptr(total), build.ptr(err),
+            build.current_stream(data.device))
+
+    def launch():
+        err.zero_()
+        build.check("vbyte_decode", fn(*args))
+
+    def result():
+        launch()
+        if err.item():
+            raise RuntimeError("the earlier K9 flagged the stream")
+        return out
+    return launch, result
+
+
+@contextlib.contextmanager
+def chunk_items(kernel: str, items: int):
+    """The wrapper of K7 or K9 sizing its scratch for chunks of `items`."""
+    name = "ENCODE_CHUNK" if kernel == "K7" else "DECODE_CHUNK"
+    kept = getattr(bytesplit, name)
+    setattr(bytesplit, name, items)
+    try:
+        yield
+    finally:
+        setattr(bytesplit, name, kept)
+
+
+def byte_timeline(cell, kernel: str, patches, fn, want, emit) -> None:
+    """K7 or K9 as it is with its timeline (K7_TIMELINE, K9_TIMELINE): the
+    wrapper's scratch is given room for six times a chunk."""
+    kept = []
+
+    def longer(chunks, dev):
+        kept.append((chunks, torch.zeros(7 * chunks + 3, dtype=torch.int64,
+                                         device=dev)))
+        return kept[-1][1]
+
+    with Variant(f"{kernel.lower()}_timeline", patches), \
+            mock.patch.object(bytesplit, "chained_scratch", longer):
+        for _ in range(2):  # the second run is read
+            got = fn()
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{cell.label}: {kernel} with its timeline "
+                           "differs")
+    chunks, scratch = kept[-1]
+    emit_timeline(cell, kernel, scratch[chunks + 3:].cpu().numpy().reshape(
+        chunks, 6), BYTE_TIMELINE_PHASES, emit)
+
+
+def k7_rows(cell: ByteCell, emit) -> None:
+    """K7 on the vbyte format unless a row says otherwise: the earlier
+    three launches, each design step taken back, the chunk sizes, the
+    timeline, and as it is; each row the launch alone (time_bytes), the
+    kernel as it is also through its wrapper."""
+    x = cell.x
+
+    def vbyte():
+        return bytesplit.vbyte_encode(x)
+
+    def svb():
+        return bytesplit.svb_encode(x)
+
+    with Variant("k7_earlier", [], earlier=["bytesplit_encode.cu",
+                                            "bytescan.cuh"]):
+        for step, is_vbyte, want in (("earlier", True, cell.vb),
+                                     ("earlier, streamvbyte", False,
+                                      cell.svb)):
+            launch, result = earlier_k7(x, is_vbyte)
+            emit(cell, "K7", step, time_bytes(cell, "K7", step, result, want,
+                                              launch))
+    fname = "bytesplit_encode.cu"
+    for step, patches in (("a branch before each load", [K7_BRANCHED_LOADS]),
+                          ("scalar loads", [K7_SCALAR_LOADS]),
+                          ("values read again", [K7_READ_AGAIN]),
+                          ("byte stores", [K7_BYTE_STORES]),
+                          ("scattered, no staging", K7_SCATTERED),
+                          ("look-back before staging", K7_LOOK_BACK_FIRST),
+                          ("narrow look-back", [NARROW_BYTE_LOOK_BACK]),
+                          ("wide look-back", [WIDE_BYTE_LOOK_BACK]),
+                          ("registers uncapped", [uncapped(fname)])):
+        with Variant("k7_" + step.replace(" ", "_").replace(",", ""),
+                     patches):
+            emit(cell, "K7", step, time_bytes(cell, "K7", step, vbyte,
+                                              cell.vb, k7_launch(x, True)))
+    with Variant("k7_no_look_back", [NO_BYTE_LOOK_BACK]):
+        emit(cell, "K7", "no look-back", cuda_ms(k7_launch(x, True)))
+    for threads in (64, 512, 1024):
+        with Variant(f"k7_threads{threads}", byte_threads(fname, threads)), \
+                chunk_items("K7", 16 * threads):
+            step = f"chunks of {16 * threads}"
+            emit(cell, "K7", step, time_bytes(cell, "K7", step, vbyte,
+                                              cell.vb, k7_launch(x, True)))
+    byte_timeline(cell, "K7", K7_TIMELINE, vbyte, cell.vb, emit)
+    with Variant("final", []):
+        emit(cell, "K7", "as it is", time_bytes(
+            cell, "K7", "as it is", vbyte, cell.vb, k7_launch(x, True)))
+        emit(cell, "K7", "as it is, streamvbyte", time_bytes(
+            cell, "K7", "as it is, streamvbyte", svb, cell.svb,
+            k7_launch(x, False)))
+        emit(cell, "K7", "as it is, through the wrapper", cuda_ms(vbyte))
+        emit(cell, "K7", "as it is, streamvbyte, through the wrapper",
+             cuda_ms(svb))
+
+
+def k9_rows(cell: ByteCell, emit) -> None:
+    """K9 on the vbyte stream: the earlier three launches, each design
+    step taken back, the chunk sizes, a stream at an odd address, the
+    timeline, and as it is (as k7_rows)."""
+    n, vb = cell.n, cell.vb
+    want = cell.x
+
+    def dec():
+        return bytesplit.vbyte_decode(vb, n)
+
+    with Variant("k9_earlier", [], earlier=["vbyte_decode.cu",
+                                            "bytescan.cuh"]):
+        launch, result = earlier_k9(vb, n)
+        emit(cell, "K9", "earlier", time_bytes(cell, "K9", "earlier", result,
+                                               want, launch))
+    fname = "vbyte_decode.cu"
+    for step, patches in (("a branch before each load", [K9_BRANCHED_LOADS]),
+                          ("scalar loads", [K9_SCALAR_LOADS]),
+                          ("walk-back in global memory", [K9_GLOBAL_WALK]),
+                          ("values by element, after the look-back",
+                           K9_BY_ELEMENT),
+                          ("4-byte stores", [K9_WORD_STORES]),
+                          ("look-back before staging", K9_LOOK_BACK_FIRST),
+                          ("narrow look-back", [NARROW_BYTE_LOOK_BACK]),
+                          ("wide look-back", [WIDE_BYTE_LOOK_BACK]),
+                          ("registers uncapped", [uncapped(fname)])):
+        with Variant("k9_" + step.replace(" ", "_"), patches):
+            emit(cell, "K9", step, time_bytes(cell, "K9", step, dec, want,
+                                              k9_launch(vb, n)))
+    with Variant("k9_no_look_back", [NO_BYTE_LOOK_BACK]):
+        emit(cell, "K9", "no look-back", cuda_ms(k9_launch(vb, n)))
+    for threads in (32, 128, 512):
+        with Variant(f"k9_threads{threads}", byte_threads(fname, threads)), \
+                chunk_items("K9", 32 * threads):
+            step = f"chunks of {32 * threads}"
+            emit(cell, "K9", step, time_bytes(cell, "K9", step, dec, want,
+                                              k9_launch(vb, n)))
+    byte_timeline(cell, "K9", K9_TIMELINE, dec, want, emit)
+    with Variant("final", []):
+        emit(cell, "K9", "as it is", time_bytes(
+            cell, "K9", "as it is", dec, want, k9_launch(vb, n)))
+        odd = torch.cat([vb.new_zeros(1), vb])[1:]
+        emit(cell, "K9", "as it is, stream at an odd address", time_bytes(
+            cell, "K9", "odd address", lambda: bytesplit.vbyte_decode(odd, n),
+            want, k9_launch(odd, n)))
+        emit(cell, "K9", "as it is, through the wrapper", cuda_ms(dec))
 
 
 class Cell:
@@ -633,6 +1367,8 @@ def main(argv=None) -> int:
         Cell("ANS on dense22", AnsInt(device=DEVICE),
              dense_input(1 << (20 if args.quick else 22)))
     ] if kernels & {"K2", "K5", "K6"} else []
+    byte = (ByteCell("the byte path, zipf20", zipf20_input(1 << log2n))
+            if kernels & {"K7", "K9"} else None)
     recs = []
 
     def emit(cell, kernel, step, ms):
@@ -653,6 +1389,12 @@ def main(argv=None) -> int:
                      cuda_ms(lambda: cell.decode(cell.dec)))
             if "K6" in kernels:
                 emit(cell, "K6", "as it is", cuda_ms(cell.scan))
+        if "K7" in kernels:
+            emit(byte, "K7", "as it is", cuda_ms(
+                lambda: bytesplit.vbyte_encode(byte.x)))
+        if "K9" in kernels:
+            emit(byte, "K9", "as it is", cuda_ms(
+                lambda: bytesplit.vbyte_decode(byte.vb, byte.n)))
     else:
         if "K1" in kernels:
             with Variant("k1_earlier", [], earlier=["encode_scan.cu"]):
@@ -697,6 +1439,10 @@ def main(argv=None) -> int:
                                 ("lookups alone", NO_CHAIN)):
                 with Variant("k6_" + step.replace(" ", "_"), [patch]):
                     emit(cell, "K6", step, cuda_ms(cell.scan))
+        if "K7" in kernels:
+            k7_rows(byte, emit)
+        if "K9" in kernels:
+            k9_rows(byte, emit)
     text = json.dumps({"card": smi, "runs": RUNS, "lanes": LANES,
                        "steps": recs})
     print(text)

@@ -35,8 +35,11 @@ svb_decode_launches = 0
 vbyte_decode_launches = 0
 
 MAX_ELEMENTS = 1 << 28  # keeps every stream below 2^31 bytes
-TILE = 1024             # elements (K7, K8) or bytes (K9) per block:
-                        # csrc/bytescan.cuh's TILE, which sizes the scratch
+TILE = 1024             # elements per block of K8: csrc/bytescan.cuh's TILE,
+                        # which sizes its scratch
+ENCODE_CHUNK = 4096     # elements a block of K7 takes, and stream bytes a
+DECODE_CHUNK = 8192     # block of K9: the CHUNK of csrc/bytesplit_encode.cu
+                        # and of csrc/vbyte_decode.cu, which sizes the scratch
 
 
 def _check_values(name: str, x: torch.Tensor) -> int:
@@ -159,16 +162,34 @@ def svb_decode_plain(control: torch.Tensor, data: torch.Tensor,
 # --------------------------------------------------------------------------
 
 _ENC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int, ct.c_void_p, ct.c_void_p,
-                 ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p]
+                 ct.c_void_p, ct.c_int64, ct.c_void_p]
 
 
 def _scratch(items: int, dev):
-    """(tile totals i32, tile offsets i64, grand total i64) of a scan over
-    `items` items."""
+    """K8's (tile totals i32, tile offsets i64, grand total i64) of a scan
+    over `items` items."""
     ntiles = -(-items // TILE)
     return (torch.empty(ntiles, dtype=torch.int32, device=dev),
             torch.empty(ntiles, dtype=torch.int64, device=dev),
             torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+def encode_chunks(n: int) -> int:
+    """K7's chunks for n elements."""
+    return -(-n // ENCODE_CHUNK)
+
+
+def decode_chunks(length: int, address: int) -> int:
+    """K9's chunks for a stream of `length` bytes at `address`: they are
+    cut at 16-byte boundaries of the address space."""
+    return -(-(address % 16 + length) // DECODE_CHUNK)
+
+
+def chained_scratch(chunks: int, dev) -> torch.Tensor:
+    """The scratch of K7 and K9's chained scan, one allocation, zeroed: a
+    status word for each chunk, the ticket, the grand total (K7's stream
+    length, K9's terminator count) and K9's flag word."""
+    return torch.zeros(chunks + 3, dtype=torch.int64, device=dev)
 
 
 def _encode(name: str, x: torch.Tensor, vbyte: bool):
@@ -176,17 +197,18 @@ def _encode(name: str, x: torch.Tensor, vbyte: bool):
     global encode_launches
     n = _check_values(name, x)
     dev = build.require_cuda(name, x)
-    tot, off, total = _scratch(n, dev)
+    chunks = encode_chunks(n)
+    scratch = chained_scratch(chunks, dev)
     out = torch.empty((5 if vbyte else 4) * n, dtype=torch.uint8, device=dev)
     control = None if vbyte else torch.empty(-(-n // 4), dtype=torch.uint8,
                                              device=dev)
     fn = build.function("bytesplit_encode", _ENC_ARGTYPES)
     build.check("bytesplit_encode", fn(
-        build.ptr(x), n, int(vbyte), build.ptr(tot), build.ptr(off),
-        build.ptr(out), None if vbyte else build.ptr(control),
-        build.ptr(total), build.current_stream(dev)))
+        build.ptr(x), n, int(vbyte), build.ptr(out),
+        None if vbyte else build.ptr(control), build.ptr(scratch), chunks,
+        build.current_stream(dev)))
     encode_launches += 1
-    return control, out[: int(total.item())]
+    return control, out[: int(scratch[chunks + 1].item())]
 
 
 def vbyte_encode(x: torch.Tensor) -> torch.Tensor:
@@ -209,8 +231,7 @@ def svb_encode(x: torch.Tensor):
 
 
 _VB_DEC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int64, ct.c_void_p,
-                    ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                    ct.c_void_p]
+                    ct.c_void_p, ct.c_int64, ct.c_void_p]
 
 
 def vbyte_decode(data: torch.Tensor, n: int) -> torch.Tensor:
@@ -228,19 +249,18 @@ def vbyte_decode(data: torch.Tensor, n: int) -> torch.Tensor:
     if data.numel() == 0:
         raise ValueError(f"vbyte stream holds 0 elements, caller asked "
                          f"for {n}")
-    tot, off, total = _scratch(data.numel(), dev)
+    chunks = decode_chunks(data.numel(), data.data_ptr())
+    scratch = chained_scratch(chunks, dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("vbyte_decode", _VB_DEC_ARGTYPES)
     build.check("vbyte_decode", fn(
-        build.ptr(data), data.numel(), n, build.ptr(tot), build.ptr(off),
-        build.ptr(out), build.ptr(total), build.ptr(err),
-        build.current_stream(dev)))
+        build.ptr(data), data.numel(), n, build.ptr(out), build.ptr(scratch),
+        chunks, build.current_stream(dev)))
     vbyte_decode_launches += 1
-    flags = int(err.item())
+    total, flags = scratch[chunks + 1: chunks + 3].tolist()
     if flags & 1:
-        raise ValueError(f"vbyte stream holds {int(total.item())} elements, "
-                         f"caller asked for {n}")
+        raise ValueError(f"vbyte stream holds {total} elements, caller "
+                         f"asked for {n}")
     if flags & 2:
         raise ValueError("corrupt vbyte stream: an element longer than 5 "
                          "bytes (u32 elements never exceed 5)")

@@ -7,7 +7,9 @@
 Stages an input (bench.py's zipf(1.25), or zipf20 for the grouped path;
 ans_tpu_torch/inputs.py; n = 2^25 values by default) with
 `models.prepare_encoder` / `models.prepare_decoder` (ANSfold-2 by
-default) on cuda, then runs each `--calls` times under torch.profiler.  Each call is
+default) on cuda, then runs each `--calls` times under torch.profiler.
+`--method vbyte` or `streamvbyte` runs the splitter's wrappers instead
+(ops/bytesplit.py: K7, then K9 or K8) on the input on the card.  Each call is
 one `record_function` span that ends with `torch.cuda.synchronize()`,
 so the span's length is the call's wall time.  Its busy time is the
 union of the device intervals (kernels, copies, memsets) inside the
@@ -89,6 +91,26 @@ def profile(fns: dict, calls: int, trace_dir: Path) -> dict:
     return {label: idle_share(events, label) for label in fns}
 
 
+def split_calls(method: str, x: np.ndarray) -> dict:
+    """The splitter's encode and decode on the card (K7, then K9 for vbyte
+    or K8 for streamvbyte), the round trip checked."""
+    from .ops import bytesplit
+    xt = torch.from_numpy(x.view(np.int32)).to("cuda")
+    if method == "vbyte":
+        stream = bytesplit.vbyte_encode(xt)
+        calls = {"split_encode": lambda: bytesplit.vbyte_encode(xt),
+                 "split_decode": lambda: bytesplit.vbyte_decode(
+                     stream, len(x))}
+    else:
+        ctrl, data = bytesplit.svb_encode(xt)
+        calls = {"split_encode": lambda: bytesplit.svb_encode(xt),
+                 "split_decode": lambda: bytesplit.svb_decode(
+                     ctrl, data, len(x))}
+    if not torch.equal(calls["split_decode"](), xt):
+        raise RuntimeError(f"{method}: the split does not round-trip")
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--method", default="ANSfold-2")
@@ -115,15 +137,18 @@ def main(argv=None) -> int:
     print(card)
     x = (bench_input(args.n, args.seed) if args.input == "bench"
          else zipf20_input(args.n))
-    pe = models.prepare_encoder(args.method, x, lanes=args.lanes,
-                                device="cuda")
-    blob = pe.prelude + pe.to_bytes(*pe())
-    pd = models.prepare_decoder(args.method, blob, args.n, device="cuda")
-    if not np.array_equal(pd.to_host(pd()), x):
-        print("profile_idle: the prepared decoder does not return the "
-              "input", file=sys.stderr)
-        return 1
-    fns = {"prepared_encode": pe, "prepared_decode": pd}
+    if args.method in ("vbyte", "streamvbyte"):
+        fns, engine = split_calls(args.method, x), None
+    else:
+        pe = models.prepare_encoder(args.method, x, lanes=args.lanes,
+                                    device="cuda")
+        blob = pe.prelude + pe.to_bytes(*pe())
+        pd = models.prepare_decoder(args.method, blob, args.n, device="cuda")
+        if not np.array_equal(pd.to_host(pd()), x):
+            print("profile_idle: the prepared decoder does not return the "
+                  "input", file=sys.stderr)
+            return 1
+        fns, engine = {"prepared_encode": pe, "prepared_decode": pd}, pd.engine
     if args.trace is None:
         with tempfile.TemporaryDirectory() as d:
             res = profile(fns, args.calls, Path(d))
@@ -132,13 +157,13 @@ def main(argv=None) -> int:
         res = profile(fns, args.calls, args.trace)
     for label, r in res.items():
         print(f"[{card}] {args.method} on {args.input}, {label} "
-              f"(n={args.n}, S={args.lanes}, engine {pd.engine}): wall "
+              f"(n={args.n}, S={args.lanes}, engine {engine}): wall "
               f"{r['wall_us']:.1f} us, busy {r['busy_us']:.1f} us per call, "
               f"idle share {r['idle_share']:.4f} over {r['calls']} calls")
         for name, us in r["ops_us"].items():
             print(f"    {us:10.1f} us  {name[:100]}")
     print(json.dumps({"card": card, "method": args.method,
-                      "input": args.input, "engine": pd.engine, "n": args.n,
+                      "input": args.input, "engine": engine, "n": args.n,
                       "lanes": args.lanes, **res}))
     return 0
 

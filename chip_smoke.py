@@ -55,7 +55,9 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      and streamvbyte split streams, vbyteANS and streamvbyteANS blobs equal
      to the records, decode exact; K7, K1, K2 launched on encode and K4 and
      K9 / K8 on decode; the AnsByte prepared decode timed under "direct"
-     and under "search".
+     and under "search"; K7 (both formats) and K9 give the same output on
+     five more runs, and each byte kernel's share of its byte bound is
+     printed.
   Phases 5-8 then hold their kernels against the plain versions at their
   own shapes (K5 in both instances) and time both.
 
@@ -88,6 +90,7 @@ FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
 RUNS, PLAIN_RUNS = 5, 1
 PLACE_REPEATS = 5  # K2 reruns that must write the same bytes
+BYTE_REPEATS = 5  # K7 and K9 reruns that must give the same output
 DEVICE = "cuda"
 # published rates of the H100 SXM: device memory, and 32-bit arithmetic
 # outside the tensor cores
@@ -388,9 +391,11 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True,
 
 def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
     """K7 (both formats), K8 and K9 on the (n,) i32 values x against their
-    plain versions, and the round trip; timings and bounds as
-    check_kernels gives them.  K7's time is the vbyte format's (5 phases
-    of compares against streamvbyte's 4); streamvbyte's is printed."""
+    plain versions, and the round trip; when timed, K7 and K9 give the same
+    output on BYTE_REPEATS more runs (their status words are zeroed every
+    call), and timings and bounds as check_kernels gives them.  K7's time
+    is the vbyte format's (5 phases of compares against streamvbyte's 4);
+    streamvbyte's is printed."""
     from ans_tpu_torch.ops import bytesplit as bs
     n = x.numel()
     where = f"at n={n}"
@@ -410,6 +415,16 @@ def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
         "svb_decode", where, got, bs.svb_decode_plain(ctrl, data, n))}
     require(torch.equal(got, x), "streamvbyte does not round-trip")
     if timed:
+        for _ in range(BYTE_REPEATS):
+            require(torch.equal(bs.vbyte_encode(x), vb),
+                    f"bytesplit_encode (vbyte) {where}: other bytes on a "
+                    f"repeated run")
+            c2, d2 = bs.svb_encode(x)
+            require(torch.equal(c2, ctrl) and torch.equal(d2, data),
+                    f"bytesplit_encode (streamvbyte) {where}: other bytes on "
+                    f"a repeated run")
+            require(torch.equal(bs.vbyte_decode(vb, n), x),
+                    f"vbyte_decode {where}: other values on a repeated run")
         pairs = {
             "bytesplit_encode": (lambda: bs.vbyte_encode(x),
                                  lambda: bs.vbyte_encode_plain(x),
@@ -901,6 +916,11 @@ def main() -> int:
     print_timed(card, "the byte path, zipf20, n=2^25", sres)
     print(f"{card} bytesplit_encode, streamvbyte format, same input: "
           f"kernel {sres['bytesplit_encode']['svb_ms']:.3f} ms")
+    print(f"{card} the byte path's kernels against their byte bounds, "
+          f"{1 + BYTE_REPEATS} runs of K7 and K9 with the same output: "
+          + ", ".join(f"{k} {r['bound_ms'] / r['ms']:.1%} of its bound "
+                      f"({r['bound_ms']:.4f} of {r['ms']:.3f} ms)"
+                      for k, r in sres.items()))
     bres = check_kernels(byte_stage(z20, FULL_LANES), timed=True,
                          plain_search=False, step_ns=step_ns)
     merge_errs(errs, bres)

@@ -217,3 +217,28 @@ def test_encode_refuses_bad_input(fn):
         fn(torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError, match="uint8"):
         bs.vbyte_decode(torch.zeros(4, dtype=torch.int32), 1)
+
+
+@pytest.mark.parametrize("n", [1, bs.ENCODE_CHUNK - 1, bs.ENCODE_CHUNK,
+                               bs.ENCODE_CHUNK + 1, bs.DECODE_CHUNK - 1,
+                               bs.DECODE_CHUNK, bs.DECODE_CHUNK + 1, 1 << 25])
+def test_chained_scratch_sizing(n):
+    """K7 and K9's scratch: a status word for each chunk, the ticket, the
+    grand total and the flag word, zeroed; K9's chunks are cut at 16-byte
+    boundaries of the address space, so a stream's address moves its
+    count."""
+    chunks = bs.encode_chunks(n)
+    assert chunks == -(-n // bs.ENCODE_CHUNK)
+    assert (chunks - 1) * bs.ENCODE_CHUNK < n <= chunks * bs.ENCODE_CHUNK
+    scratch = bs.chained_scratch(chunks, "cpu")
+    assert scratch.dtype == torch.int64 and scratch.numel() == chunks + 3
+    assert not scratch.any()
+    C = bs.DECODE_CHUNK
+    for address in (0, 16, 4096):
+        assert bs.decode_chunks(n, address) == -(-n // C)
+    for address in (1, 15, 31):
+        got = bs.decode_chunks(n, address)
+        assert (got - 1) * C < address % 16 + n <= got * C
+    assert bs.decode_chunks(C - 15, 15) == 1
+    assert bs.decode_chunks(C - 15, 16 + 15) == 1
+    assert bs.decode_chunks(C - 14, 15) == 2

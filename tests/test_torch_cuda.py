@@ -21,8 +21,10 @@ or read from device memory) every lane count, streams shorter than one
 that leaves the ring no room; for K6 scans that end inside a tile of
 steps, inside a row of lanes and inside a block of lanes; for the byte
 splitters K7-K9 every element
-length, ragged sizes and corrupt streams; for the step probe every chain
-against its plain version.
+length, ragged sizes and corrupt streams, and for the single passes K7
+and K9 sizes at chunk multiples +-1, elements across chunk boundaries,
+streams at every odd address, a look-back past one window and repeated
+calls; for the step probe every chain against its plain version.
 """
 
 import hashlib
@@ -1001,3 +1003,147 @@ def test_byte_codecs_on_card_equal_cpu(cuda, name):
     assert blob == on_cpu.encode(x)
     np.testing.assert_array_equal(on_card.decode(blob, len(x)), x)
     np.testing.assert_array_equal(on_cpu.decode(blob, len(x)), x)
+
+
+# K7 and K9 as chained scans with decoupled look-back: chunks of
+# bytesplit.ENCODE_CHUNK elements for K7 and DECODE_CHUNK stream bytes for
+# K9, cut at 16-byte boundaries of the address space
+
+def _at(stream: torch.Tensor, mis: int) -> torch.Tensor:
+    """A copy of the stream whose first byte lies `mis` bytes past a 16-byte
+    boundary."""
+    pad = torch.zeros(mis + stream.numel() + 16, dtype=torch.uint8,
+                      device=stream.device)
+    skip = (mis - pad.data_ptr()) % 16
+    out = pad[skip: skip + stream.numel()]
+    out.copy_(stream)
+    assert out.data_ptr() % 16 == mis
+    return out
+
+
+def _vb_decode_counted(data, n):
+    before = bytesplit.vbyte_decode_launches
+    try:
+        return bytesplit.vbyte_decode(data, n)
+    finally:
+        assert bytesplit.vbyte_decode_launches == before + 1
+
+
+C = bytesplit.ENCODE_CHUNK
+D = bytesplit.DECODE_CHUNK
+
+
+@pytest.mark.parametrize("n", [C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1,
+                               3 * C + 5])
+def test_bytesplit_encode_at_chunk_edges(cuda, n):
+    """K7, both formats, at chunk multiples +-1: one launch a call."""
+    x = torch.from_numpy(_mixed(n, n + 1).view(np.int32)).to(cuda)
+    before = bytesplit.encode_launches
+    assert torch.equal(bytesplit.vbyte_encode(x),
+                       bytesplit.vbyte_encode_plain(x))
+    ctrl, data = bytesplit.svb_encode(x)
+    pc, pdata = bytesplit.svb_encode_plain(x)
+    assert torch.equal(ctrl, pc) and torch.equal(data, pdata)
+    assert bytesplit.encode_launches == before + 2
+
+
+@pytest.mark.parametrize("length", [D - 1, D, D + 1, 2 * D - 1, 2 * D,
+                                    2 * D + 1])
+@pytest.mark.parametrize("mis", [0, 1, 15])
+def test_vbyte_decode_at_chunk_edges(cuda, length, mis):
+    """K9 on streams of chunk multiples +-1 bytes at 16-byte boundaries and
+    off them, one-byte and longer elements mixed."""
+    rng = np.random.default_rng(length + mis)
+    x = torch.from_numpy(_mixed(length, length).view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)[:length]
+    n = int((vb < 0x80).sum())
+    vb = _at(vb, mis)
+    want = bytesplit.vbyte_decode_plain(vb, n)
+    assert torch.equal(_vb_decode_counted(vb, n), want)
+    k = int(rng.integers(1, n + 1))
+    assert torch.equal(_vb_decode_counted(vb, k), want[:k])
+
+
+@pytest.mark.parametrize("mis", [0, 1, 7, 8, 15])
+def test_vbyte_five_byte_element_ending_a_chunk_boundary(cuda, mis):
+    """A 5-byte element whose terminator is the first byte of a chunk: its
+    four continuation bytes lie in the chunk before, read from the halo."""
+    first = D - mis  # the stream position of chunk 1's first byte
+    vals = np.concatenate([np.arange(first - 4) % 128,
+                           [(1 << 32) - 1 - mis],
+                           _mixed(3000, mis)]).astype(np.uint32)
+    x = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)
+    assert int(vb[first]) < 0x80 and bool((vb[first - 4: first] >= 0x80).all())
+    got = _vb_decode_counted(_at(vb, mis), len(vals))
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3, 5])
+def test_vbyte_six_byte_element_across_a_chunk_boundary(cuda, split):
+    """A 6-byte element with `split` of its bytes before the first chunk
+    boundary (5: its terminator is chunk 1's first byte) raises flag bit 1
+    when it is among the first n elements, and is not read when it lies
+    past them."""
+    head = np.full(D - split, 5, np.uint8)  # one-byte elements
+    bad = np.array([0x80] * 5 + [1], np.uint8)
+    vb = torch.from_numpy(np.concatenate([head, bad, np.full(100, 7,
+                                                             np.uint8)]))
+    vb = _at(vb.to(cuda), 0)
+    for n in (len(head) + 1, len(head) + 50):
+        with pytest.raises(ValueError, match="longer than 5"):
+            _vb_decode_counted(vb, n)
+    got = _vb_decode_counted(vb, len(head))
+    assert torch.equal(got, bytesplit.vbyte_decode_plain(vb, len(head)))
+
+
+def test_bytesplit_look_back_past_one_window(cuda):
+    """n = 2^22 + 5: K7 over 1025 chunks and K9 over about as many, so that
+    the look-back can walk more than one window (32 LOOK status words: 64,
+    or 256 at K2's width); the same output on five repeated calls (the
+    status words are zeroed every call)."""
+    n = (1 << 22) + 5
+    x = torch.from_numpy(_mixed(n, 22).view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)
+    assert torch.equal(vb, bytesplit.vbyte_encode_plain(x))
+    ctrl, data = bytesplit.svb_encode(x)
+    pc, pdata = bytesplit.svb_encode_plain(x)
+    assert torch.equal(ctrl, pc) and torch.equal(data, pdata)
+    assert bytesplit.encode_chunks(n) > 32 * 8
+    assert bytesplit.decode_chunks(vb.numel(), vb.data_ptr()) > 32 * 8
+    assert torch.equal(_vb_decode_counted(vb, n), x)
+    for _ in range(5):
+        assert torch.equal(bytesplit.vbyte_encode(x), vb)
+        again = bytesplit.svb_encode(x)
+        assert torch.equal(again[0], ctrl) and torch.equal(again[1], data)
+        assert torch.equal(_vb_decode_counted(vb, n), x)
+
+
+@pytest.mark.parametrize("mis", range(1, 16, 2))
+def test_vbyte_decode_at_odd_addresses(cuda, mis):
+    """A vbyte stream sliced at an odd address, as the codecs hand a joined
+    stream over: byte loads at the head and tail, 16-byte loads between."""
+    n = 70001
+    x = torch.from_numpy(_mixed(n, mis).view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)
+    joined = torch.cat([vb.new_full((mis,), 0x80), vb])
+    assert joined[mis:].data_ptr() % 16 == mis
+    assert torch.equal(_vb_decode_counted(joined[mis:], n), x)
+    assert torch.equal(_vb_decode_counted(_at(vb, mis), n - 7), x[:-7])
+
+
+def test_vbyte_decode_more_and_fewer_elements_than_n(cuda):
+    """More elements than n: the first n, the rest not read (a corrupt
+    element among them raises nothing); fewer: ValueError naming the
+    count."""
+    n = 3 * D + 11
+    x = torch.from_numpy(_mixed(n, 5).view(np.int32)).to(cuda)
+    vb = bytesplit.vbyte_encode(x)
+    longer = torch.cat([vb, vb.new_full((9,), 0x80), vb.new_ones(1)])
+    for k in (1, D - 1, D, n):
+        assert torch.equal(_vb_decode_counted(longer, k), x[:k])
+    with pytest.raises(ValueError, match=f"holds {n} elements, caller asked "
+                                         f"for {n + 2}"):
+        _vb_decode_counted(vb, n + 2)
+    with pytest.raises(ValueError, match=f"holds {n + 1} elements"):
+        _vb_decode_counted(longer, n + 5)

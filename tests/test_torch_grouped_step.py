@@ -219,6 +219,49 @@ def test_bench_steps_substitutions_match_the_sources():
         assert new != old
 
 
+BYTE_PATCHES = [
+    *bench_steps.byte_threads("bytesplit_encode.cu", 64),
+    *bench_steps.byte_threads("vbyte_decode.cu", 512),
+    bench_steps.uncapped("bytesplit_encode.cu"),
+    bench_steps.uncapped("vbyte_decode.cu"),
+    bench_steps.NARROW_BYTE_LOOK_BACK, bench_steps.WIDE_BYTE_LOOK_BACK,
+    bench_steps.NO_BYTE_LOOK_BACK, bench_steps.K7_BRANCHED_LOADS,
+    bench_steps.K7_SCALAR_LOADS, bench_steps.K7_READ_AGAIN,
+    bench_steps.K7_BYTE_STORES, *bench_steps.K7_LOOK_BACK_FIRST,
+    *bench_steps.K7_SCATTERED, *bench_steps.K7_TIMELINE,
+    bench_steps.K9_BRANCHED_LOADS, bench_steps.K9_GLOBAL_WALK,
+    bench_steps.K9_SCALAR_LOADS, *bench_steps.K9_BY_ELEMENT,
+    bench_steps.K9_WORD_STORES, *bench_steps.K9_LOOK_BACK_FIRST,
+    *bench_steps.K9_TIMELINE]
+
+
+@pytest.mark.parametrize("patch", BYTE_PATCHES,
+                         ids=[f"{p[0]}-{i}" for i, p in enumerate(
+                             BYTE_PATCHES)])
+def test_bench_steps_byte_substitutions_match_the_sources(patch):
+    """The same for K7 and K9's design steps: each text stands in its
+    source exactly once."""
+    fname, old, new = patch
+    assert (build.CSRC / fname).read_text().count(old) == 1, (fname, old)
+    assert new != old
+
+
+def test_bench_steps_earlier_byte_sources_stand_beside_the_kernels():
+    """The earlier K7 and K9 (three launches over csrc/bytescan.cuh) are
+    kept whole with a copy of that header, export the C entry points they
+    had, and no codec path builds them."""
+    for name in ("bytesplit_encode", "vbyte_decode"):
+        text = (bench_steps.EARLIER / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}(' in text
+        assert '#include "bytescan.cuh"' in text
+        assert "scan_totals_kernel<<<1, 1024" in text
+        assert "lookback.cuh" not in text
+        assert "lookback.cuh" in (build.CSRC / f"{name}.cu").read_text()
+    header = (bench_steps.EARLIER / "bytescan.cuh").read_text()
+    assert "scan_totals_kernel" in header and header.endswith(
+        (build.CSRC / "bytescan.cuh").read_text())
+
+
 def test_bench_steps_earlier_sources_stand_beside_the_kernels():
     """The earlier forms of K1 and K2 that bench_steps copies over its copy
     of csrc/ export the C entry points the kernels had, and no codec path
