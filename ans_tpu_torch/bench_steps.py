@@ -1,11 +1,11 @@
 """Time the design steps of the kernels apart, on one CUDA card: K5
 (csrc/decode_grouped.cu) and K6 (csrc/encode_scan_grouped.cu) on the
 grouped path, K1 (csrc/encode_scan.cu) and K2 (csrc/place.cu) on the
-main path and K2 on the grouped path; K7 (csrc/bytesplit_encode.cu) and
-K9 (csrc/vbyte_decode.cu) on the byte path.
+main path and K2 on the grouped path; K7 (csrc/bytesplit_encode.cu), K8
+(csrc/svb_decode.cu) and K9 (csrc/vbyte_decode.cu) on the byte path.
 
     python3 -m ans_tpu_torch.bench_steps [--out FILE] [--quick] [--baseline]
-        [--kernels K1,K2,K5,K6,K7,K9]
+        [--kernels K1,K2,K5,K6,K7,K8,K9]
 
 The sources keep one form of each kernel.  This script rebuilds the
 earlier forms from them: it copies csrc/ into the build directory, applies
@@ -14,7 +14,7 @@ that has moved on fails here and not silently), builds the copy and times
 it beside the sources as they are, in one process on one card.  What needs
 no other source is set through the wrappers: the instance ("global") and
 the bucket level (a one-bucket table with the full search's levels).  The
-earlier forms of K1, K2, K7 and K9 differ from the sources throughout:
+earlier forms of K1, K2, K7, K8 and K9 differ from the sources throughout:
 their sources are kept whole in ans_tpu_torch/earlier_csrc/ and copied over the
 copy of csrc/ (no codec path builds them).
 
@@ -53,8 +53,10 @@ K2:
                ~20 torch kernels over (T, S, 6) masks) and the earlier K2
   earlier      the earlier K2 alone, round_base given: one block a step,
                one-byte stores
-  narrow look-back  the look-back reading one status word a lane: 32
-               chunks a round trip to L2, where it reads 256 as it is
+  narrow look-back / look-back eight words a lane  the look-back
+               (csrc/lookback.cuh) reading one / eight status words a lane:
+               32 / 256 chunks a round trip to L2 (eight as K2's own copy
+               of the look-back read them), where it reads two as it is
   no look-back  every chunk placed at offset 0 (wrong by design): what the
                look-back costs
   block index / relaxed publish  the chunk taken by block index instead of
@@ -72,6 +74,9 @@ K2:
   byte stores  the single pass, its run written with one-byte stores
   as it is     the single pass, 16 lanes a thread (blocks of 256 threads
                at S = 4096), 16-byte stores on the run's interior
+Each K2 row but "earlier + totals" times the launch alone (its status
+words zeroed in front, on buffers allocated once); "as it is, through the
+wrapper" times the call chip_smoke.py times.
 
 K7 (vbyte format unless a row says otherwise) and K9, one launch each, a
 chained scan with decoupled look-back (csrc/lookback.cuh):
@@ -105,16 +110,40 @@ chained scan with decoupled look-back (csrc/lookback.cuh):
   as it is     K7 chunks of 4096 elements, K9 of 8192 bytes, 256
                threads; K9 also on the stream at an odd address (byte
                loads at its head and tail)
-Each K7 / K9 row times the launch alone (its status words zeroed in front,
-on buffers allocated once); the rows "through the wrapper" time the call
-chip_smoke.py times (allocations, the launch, the sync on the length or
-the flags).
+K8, one launch on the same header:
+  earlier      three launches (tile totals from the control bytes, one
+               block scanning them, the decode pass reading the control
+               bytes again and gathering each element byte by byte)
+  byte loads behind a branch  no staging: each element gathered byte by
+               byte from device memory behind a check of the data length
+               (the earlier gather)
+  4-byte stores  four stores a control byte instead of one 16-byte store
+  two launches  a pass over the control bytes alone publishes every
+               chunk's aggregate, then the decode pass, whose look-back
+               never waits
+  look-back two / eight words a lane  where it reads one (32 chunks a
+               round trip)
+  no look-back, registers uncapped  as for K7 and K9
+  five blocks an SM  registers capped for five blocks, not six
+  chunks of 2048 / 8192  blocks of 128 / 512 threads, 16 elements a
+               thread, as many threads an SM
+  timeline     ticket, control loads and scan, look-back, data loads,
+               decode and stores
+  as it is     chunks of 4096 elements, 256 threads, six blocks an SM, a
+               look-back of one word a lane; also with the data
+               right behind the control bytes, as the codecs hand them
+               over (an odd address)
+Each K7 / K8 / K9 row times the launch alone (its status words zeroed in
+front, on buffers allocated once); the rows "through the wrapper" time the
+call chip_smoke.py times (allocations, the launch, the sync on the length
+or the flags).
 
 Cells: ANSfold-7 on zipf20 (n = 2^25, S = 4096: the grouped path) and ANS on
 dense22 (n = 2^22; K5's value table in global memory, K6 fed ranks) for K5,
 K6 and K2; ANSfold-2 on bench.py's input (n = 2^25, S = 4096: the main
-path) for K1 and K2; zipf20 (n = 2^25) through K7 and its vbyte stream
-(64,162,199 bytes) through K9.  Every variant's output is held against the
+path) for K1 and K2; zipf20 (n = 2^25) through K7, its vbyte stream
+(64,162,199 bytes) through K9 and its streamvbyte stream (67,713,815 data
+bytes) through K8.  Every variant's output is held against the
 final kernel's.  Times are CUDA events, min of 5 after a warm-up.
 --baseline times only the kernels as they are, through calls every version
 of the port has (to time an older tree, copy this file into it).  Prints one line per variant with the
@@ -144,7 +173,8 @@ from .ops import bytesplit, decode, encode, lane_codec, place, tables
 RUNS = 5
 DEVICE = "cuda"
 LANES = 4096
-EARLIER = build.CSRC.parent / "earlier_csrc"  # earlier forms of K1 and K2
+# earlier forms of K1, K2, K7, K8 and K9
+EARLIER = build.CSRC.parent / "earlier_csrc"
 
 # K5: the search of a thread's lanes one lane after the other
 LANE_AFTER_LANE = ("decode_grouped.cu", """\
@@ -210,14 +240,19 @@ BYTE_STORES = ("place.cu", """\
   const int64_t a0 = max(p1, p0), a1 = a0;
 """)
 
-# K2: the look-back one status word a lane (32 chunks a round trip), or none
-# at all (every chunk placed at 0: the output is wrong by design)
-NARROW_LOOK_BACK = ("place.cu", "constexpr int LOOK = 8;",
+# K2: the look-back (lookback.cuh, two status words a lane) one or eight
+# status words a lane (32 or 256 chunks a round trip; eight as K2's own
+# copy of the look-back read them), or none at all (every chunk placed at
+# 0: the output is wrong by design)
+NARROW_LOOK_BACK = ("place.cu", "constexpr int LOOK = 2;",
                     "constexpr int LOOK = 1;")
-NO_LOOK_BACK = ("place.cu", """\
-    const uint64_t ex = chunk == 0 ? 0 : look_back(status, chunk);
-""", """\
-    const uint64_t ex = chunk < 0 ? look_back(status, chunk) : 0;
+WIDE_LOOK_BACK = ("place.cu", "constexpr int LOOK = 2;",
+                  "constexpr int LOOK = 8;")
+K2_LOOK_BACK = """\
+  const uint64_t ex = lookback::exclusive_prefix<LOOK>(status, chunk, agg);
+"""
+NO_LOOK_BACK = ("place.cu", K2_LOOK_BACK, """\
+  const uint64_t ex = 0;
 """)
 
 # K2: chunks of two steps at S = 4096 (blocks of 512 threads)
@@ -226,11 +261,12 @@ TWO_STEPS_A_CHUNK = ("place.cu", "constexpr int STEP_BLOCK = 256;",
 
 # K2: the chunk by block index instead of the ticket (the look-back then
 # relies on blocks starting in index order, as they do), or the status words
-# published relaxed instead of with release
-BLOCK_INDEX = ("place.cu",
+# published relaxed instead of with release (both in lookback.cuh, which
+# the K2 rows build only into K2)
+BLOCK_INDEX = ("lookback.cuh",
                "  if (threadIdx.x == 0) chunk_s = atomicAdd(ticket, 1u);\n",
                "  if (threadIdx.x == 0) chunk_s = blockIdx.x;\n")
-RELAXED_PUBLISH = ("place.cu", "st.release.gpu.global.u64",
+RELAXED_PUBLISH = ("lookback.cuh", "st.release.gpu.global.u64",
                    "st.relaxed.gpu.global.u64")
 
 # K2 with a timeline: thread 0 of each block reads the global timer at its
@@ -244,11 +280,11 @@ RELAXED_PUBLISH = ("place.cu", "st.release.gpu.global.u64",
 # 200 ns before it reads a window again; the look-back before the staging
 # (warp 0 looks back while the others stage)
 STAGE_UNROLLED = ("place.cu", "#pragma unroll 2\n", "#pragma unroll\n")
-PAUSE = ("place.cu", """\
-      unpublished = __any_sync(lane::FULL_MASK, waiting);
+PAUSE = ("lookback.cuh", """\
+      if (!__any_sync(lane::FULL_MASK, waiting && me <= last)) break;
 """, """\
-      unpublished = __any_sync(lane::FULL_MASK, waiting);
-      if (unpublished) __nanosleep(200);
+      if (!__any_sync(lane::FULL_MASK, waiting && me <= last)) break;
+      __nanosleep(200);
 """)
 LOOK_BACK_FIRST = [
     ("place.cu", """\
@@ -259,13 +295,9 @@ LOOK_BACK_FIRST = [
     stage_lanes<LPT, false>(packed, nb, excw, row, l0, S, n, pos, bytes);
 """, ""),
     ("place.cu", """\
-      excl_s = ex;
-    }
-  }
+  if (threadIdx.x == 0) excl_s = ex;
 """, """\
-      excl_s = ex;
-    }
-  }
+  if (threadIdx.x == 0) excl_s = ex;
   uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);
   if (fast)
     stage_lanes<LPT, true>(packed, nb, excw, row, l0, S, n, pos, bytes);
@@ -274,16 +306,11 @@ LOOK_BACK_FIRST = [
 """)]
 TIMELINE = [
     ("place.cu", """\
-  if (threadIdx.x == 0) chunk_s = atomicAdd(ticket, 1u);
+  const int64_t chunk = lookback::take_ticket(ticket);
 """, """\
   uint64_t clk[6];
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[0]));
-  if (threadIdx.x == 0) chunk_s = atomicAdd(ticket, 1u);
-"""),
-    ("place.cu", """\
-  const int64_t chunk = chunk_s;
-""", """\
-  const int64_t chunk = chunk_s;
+  const int64_t chunk = lookback::take_ticket(ticket);
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[1]));
 """),
     ("place.cu", """\
@@ -292,12 +319,9 @@ TIMELINE = [
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[2]));
   uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);
 """),
-    ("place.cu", """\
-  if (threadIdx.x < 32) {
-    const uint64_t ex""", """\
+    ("place.cu", K2_LOOK_BACK, """\
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[3]));
-  if (threadIdx.x < 32) {
-    const uint64_t ex"""),
+""" + K2_LOOK_BACK),
     ("place.cu", """\
   const int64_t p0 = static_cast<int64_t>(excl_s);
 """, """\
@@ -328,22 +352,37 @@ FOUR_LANES_A_THREAD = [
     ("place.cu", "constexpr int STEP_BLOCK = 256;",
      "constexpr int STEP_BLOCK = 1024;")]
 
-# K7 and K9 (csrc/bytesplit_encode.cu, csrc/vbyte_decode.cu): blocks of
-# `threads` threads, each holding as many threads an SM as the kernel as it
-# is (1280: five blocks of 256; an SM holds at most 32 blocks), so that the
-# chunk grows with the block
+# blocks of 256 threads an SM that K7, K8 and K9 cap their registers for
+MIN_BLOCKS = {"bytesplit_encode.cu": 5, "svb_decode.cu": 6,
+              "vbyte_decode.cu": 5}
+
+
+# K7, K8 and K9: blocks of `threads` threads, each holding as many threads
+# an SM as the kernel as it is (five or six blocks of 256; an SM holds at
+# most 32 blocks), so that the chunk grows with the block
 def byte_threads(fname: str, threads: int):
-    blocks = min(32, max(1, 1280 // threads))
+    blocks = min(32, max(1, 256 * MIN_BLOCKS[fname] // threads))
     return [(fname, "constexpr int THREADS = 256;  // a block",
              f"constexpr int THREADS = {threads};  // a block"),
-            (fname, "constexpr int MIN_BLOCKS = 5;",
+            (fname, f"constexpr int MIN_BLOCKS = {MIN_BLOCKS[fname]};",
              f"constexpr int MIN_BLOCKS = {blocks};")]
 
 
-# K7 and K9: the registers not capped (four blocks of 256 an SM, not five)
+# K7, K8 and K9: the registers not capped (four blocks of 256 an SM)
 def uncapped(fname: str):
-    return (fname, "constexpr int MIN_BLOCKS = 5;",
+    return (fname, f"constexpr int MIN_BLOCKS = {MIN_BLOCKS[fname]};",
             "constexpr int MIN_BLOCKS = 1;")
+
+
+# K8: its look-back `words` status words a lane, where it reads one; its
+# registers capped for five blocks an SM, where it holds six
+def k8_look(words: int):
+    return ("svb_decode.cu", "constexpr int LOOK = 1;",
+            f"constexpr int LOOK = {words};")
+
+
+K8_FIVE_BLOCKS = ("svb_decode.cu", "constexpr int MIN_BLOCKS = 6;",
+                  "constexpr int MIN_BLOCKS = 5;")
 
 
 # K7 and K9: the look-back one status word a lane (32 chunks a round trip),
@@ -354,9 +393,9 @@ NARROW_BYTE_LOOK_BACK = ("lookback.cuh", "constexpr int LOOK = 2;",
 WIDE_BYTE_LOOK_BACK = ("lookback.cuh", "constexpr int LOOK = 2;",
                        "constexpr int LOOK = 8;")
 NO_BYTE_LOOK_BACK = ("lookback.cuh", """\
-  const uint64_t ex = chunk == 0 ? 0 : look_back(status, chunk);
+  const uint64_t ex = chunk == 0 ? 0 : look_back<WORDS>(status, chunk);
 """, """\
-  const uint64_t ex = chunk < 0 ? look_back(status, chunk) : 0;
+  const uint64_t ex = chunk < 0 ? look_back<WORDS>(status, chunk) : 0;
 """)
 
 # K7 and K9: the first form of the loads, a branch before each 16-byte load
@@ -719,20 +758,20 @@ K9_LOOK_BACK_FIRST = [
     ("vbyte_decode.cu", K9_LOOK_BACK, K9_LOOK_BACK + K9_STAGING)]
 
 
-def byte_timeline(fname: str, counted: str, first_write: str, end: str):
-    """K7 or K9 with a timeline: thread 0 of each block reads the global
-    timer at its start, after the ticket, after its loads, counts and block
-    scan, after staging, after the look-back (and the barrier behind it)
-    and at its end, and writes the six times past the scratch's words (the
-    caller gives a longer scratch)."""
+def timeline_patches(fname: str, marks, end: str):
+    """K7, K8 or K9 with a timeline: thread 0 of each block reads the global
+    timer at its start, after the ticket, at each of the three `marks`
+    (text, True to read after it or False before it) and at its end, and
+    writes the six times past the scratch's words (the caller gives a longer
+    scratch)."""
     tick = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(clk[{}]));\n'
     ticket = "  const int64_t chunk = lookback::take_ticket(ticket);\n"
     return [
         (fname, ticket, "  uint64_t clk[6];\n  " + tick.format(0) + ticket
          + "  " + tick.format(1)),
-        (fname, counted, "  " + tick.format(2) + counted),
-        (fname, K7_LOOK_BACK, "  " + tick.format(3) + K7_LOOK_BACK),
-        (fname, first_write, first_write + "  " + tick.format(4)),
+        *[(fname, text, text + "  " + tick.format(i) if after
+           else "  " + tick.format(i) + text)
+          for i, (text, after) in enumerate(marks, start=2)],
         (fname, end, end[:-2] + "  " + tick.format(5) + """\
   if (threadIdx.x == 0)
     for (int i = 0; i < 6; ++i)
@@ -741,21 +780,24 @@ def byte_timeline(fname: str, counted: str, first_write: str, end: str):
 """)]
 
 
-K7_TIMELINE = byte_timeline(
-    "bytesplit_encode.cu",
-    "  uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);\n",
-    "  const int64_t p0 = static_cast<int64_t>(excl_s);\n", """\
+# K7 and K9: after the loads, counts and scan, before the look-back, after
+# it (and the barrier behind it)
+K7_TIMELINE = timeline_patches("bytesplit_encode.cu", [
+    ("  uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);\n", False),
+    (K7_LOOK_BACK, False),
+    ("  const int64_t p0 = static_cast<int64_t>(excl_s);\n", True)], """\
         for (int k = c; k < m; ++k) control[c0 + k] = keys[k];
       }
     }
   }
 }
 """)
-K9_TIMELINE = byte_timeline(
-    "vbyte_decode.cu",
-    "  // the scan's barriers made the granules and the halo visible: each\n",
-    "  const int64_t e0 = static_cast<int64_t>(excl_s);  // the chunk's first "
-    "element\n", """\
+K9_TIMELINE = timeline_patches("vbyte_decode.cu", [
+    ("  // the scan's barriers made the granules and the halo visible: each\n",
+     False),
+    (K9_LOOK_BACK, False),
+    ("  const int64_t e0 = static_cast<int64_t>(excl_s);  // the chunk's "
+     "first element\n", True)], """\
         make_uint4(src[0], src[1], src[2], src[3]);
   }
 }
@@ -763,11 +805,123 @@ K9_TIMELINE = byte_timeline(
 BYTE_TIMELINE_PHASES = ("ticket", "loads, counts and scan", "staging",
                         "look-back", "writes")
 
-# the earlier K7's and K9's C entry points: tile totals and offsets as
-# scratch (ops/bytesplit.py _scratch, which K8 still uses)
+# K8 (csrc/svb_decode.cu): the chunk's data staged in shared memory, then
+# each control byte's values from five of its words
+K8_STAGING = """\
+  // the data [off, off + agg) as the granules of the address space that
+  // hold it, the first `head` bytes of the first one before off: granule i
+  // of the chunk is thread i % THREADS's load i / THREADS
+  const uintptr_t base = reinterpret_cast<uintptr_t>(data);
+  const uintptr_t a0 = (base + off) & ~uintptr_t(15);
+  const int head = static_cast<int>(base + off - a0);
+  const int count = (head + static_cast<int>(agg) + 15) >> 4;
+  uint4 q[LOADS];
+  if (a0 >= base && a0 + 16 * count <= base + data_len) {
+    const uint4* g0 = reinterpret_cast<const uint4*>(a0);
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k)
+      if (k * THREADS < count)  // the same for the whole block
+        q[k] = __ldg(g0 + min(k * THREADS + static_cast<int>(threadIdx.x),
+                              count - 1));
+  } else {
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k)
+      if (k * THREADS < count)
+        q[k] = load_edge(data, data_len,
+                         off - head + 16 * (k * THREADS + threadIdx.x));
+  }
+#pragma unroll
+  for (int k = 0; k < LOADS; ++k)
+    if (k * THREADS + static_cast<int>(threadIdx.x) < count)
+      staged[k * THREADS + threadIdx.x] = q[k];
+  __syncthreads();
+"""
+K8_VALUES = """\
+    values_of(words, head + start[g], ctrl[g], v);
+"""
+# K8: no staging; each element gathered byte by byte from device memory
+# behind a check of the data length, as the earlier K8 gathered it (a
+# thread's byte loads behind a loop of its own each)
+K8_GATHER = [
+    ("svb_decode.cu", K8_STAGING, ""),
+    ("svb_decode.cu", K8_VALUES, """\
+    int64_t p = off + start[g];
+    for (int j = 0; j < 4; ++j) {
+      const int len = 1 + ((ctrl[g] >> (2 * j)) & 3);
+      v[j] = 0;
+      if (p + len <= data_len) {
+        for (int b = 0; b < len; ++b)
+          v[j] |= static_cast<uint32_t>(data[p + b]) << (8 * b);
+      }
+      p += len;
+    }
+""")]
+# K8: four 4-byte stores a control byte instead of one 16-byte store
+K8_WORD_STORES = ("svb_decode.cu", """\
+      *reinterpret_cast<uint4*>(out + e) = make_uint4(v[0], v[1], v[2], v[3]);
+""", """\
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[e + j] = v[j];
+""")
+# K8 in two launches: a pass over the control bytes alone publishes every
+# chunk's aggregate (chunk 0 its prefix), then the decode pass, whose
+# look-back finds every status word published and never waits
+K8_TWO_LAUNCHES = [
+    ("svb_decode.cu", """\
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    svb_decode_kernel(""", """\
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    svb_aggregate_kernel(const uint8_t* __restrict__ control, int64_t n,
+                         uint64_t* status) {
+  __shared__ lane::ScanScratch scratch;
+  uint32_t ctrl[BYTES];
+  int cnt[lane::MAX_ROUNDS] = {0, 0, 0, 0, 0, 0};
+  load_control(control, blockIdx.x, n, ctrl, cnt);
+  int excl[lane::MAX_ROUNDS], tot[lane::MAX_ROUNDS];
+  lane::block_exclusive_scan(BYTES, cnt, excl, tot, scratch);
+  uint32_t agg = 0;
+#pragma unroll
+  for (int g = 0; g < BYTES; ++g) agg += tot[g];
+  if (threadIdx.x == 0)
+    lookback::publish(status + blockIdx.x, agg,
+                      blockIdx.x == 0 ? lookback::PREFIX
+                                      : lookback::AGGREGATE);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    svb_decode_kernel("""),
+    ("svb_decode.cu", """\
+  svb_decode_kernel<<<""", """\
+  svb_aggregate_kernel<<<static_cast<unsigned>(chunks), THREADS, 0, cs>>>(
+      static_cast<const uint8_t*>(control), n,
+      static_cast<uint64_t*>(scratch));
+  svb_decode_kernel<<<""")]
+# K8 with a timeline: before the look-back, after it (and the barrier
+# behind it), after the data's staging
+K8_LOOK_BACK = """\
+  const uint64_t ex = lookback::exclusive_prefix<LOOK>(status, chunk, agg);
+"""
+K8_TIMELINE = timeline_patches("svb_decode.cu", [
+    (K8_LOOK_BACK, False),
+    ("  const int64_t off = static_cast<int64_t>(excl_s);  // the chunk's "
+     "first byte\n", True),
+    ("  // each control byte's four values, one 16-byte store (elements past "
+     "n\n", False)], """\
+        if (e + j < n) out[e + j] = v[j];
+    }
+  }
+}
+""")
+K8_TIMELINE_PHASES = ("ticket", "control loads and scan", "look-back",
+                      "data loads", "decode and stores")
+
+# the earlier K7's, K8's and K9's C entry points: tile totals and offsets
+# as scratch (earlier_scratch)
 EARLIER_ENC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int] + [ct.c_void_p] * 6
 EARLIER_VB_DEC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int64] + [
     ct.c_void_p] * 6
+EARLIER_SVB_DEC_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_int64,
+                            ct.c_int64] + [ct.c_void_p] * 6
 
 # the earlier K2's C entry point: round_base in, one error flag out
 EARLIER_PLACE_ARGTYPES = [
@@ -881,7 +1035,8 @@ class Variant:
     @staticmethod
     def _forget():
         for name in ("decode_grouped", "encode_scan_grouped", "encode_scan",
-                     "place", "bytesplit_encode", "vbyte_decode"):
+                     "place", "bytesplit_encode", "svb_decode",
+                     "vbyte_decode"):
             build._libs.pop(name, None)
 
 
@@ -895,13 +1050,11 @@ def _place(packed, nb, excw, n: int) -> torch.Tensor:
     return place.place(packed, nb, excw, n)[0]
 
 
-def earlier_place(packed, nb, excw, n: int, total: int, round_base=None):
+def earlier_place(packed, nb, excw, n: int, total: int):
     """The earlier K2 (built from earlier_csrc/place.cu inside its
     Variant) as the earlier prepared encoder called it: round_base from the
-    plain round totals (unless given), the launch, one sync on its error
-    flag."""
-    if round_base is None:
-        round_base, _ = lane_codec.encode_totals(packed, nb, n)
+    plain round totals, the launch, one sync on its error flag."""
+    round_base, _ = lane_codec.encode_totals(packed, nb, n)
     T, S = packed.shape
     stream = torch.empty(total, dtype=torch.uint8, device=DEVICE)
     err = torch.zeros(1, dtype=torch.int32, device=DEVICE)
@@ -913,6 +1066,32 @@ def earlier_place(packed, nb, excw, n: int, total: int, round_base=None):
     if err.item():
         raise RuntimeError("the earlier K2 wrote past the stream")
     return stream
+
+
+def earlier_k2(cell):
+    """The earlier K2 with round_base given, on buffers allocated once (as
+    earlier_k7 gives K7): (launch, result), result() the launch and the sync
+    on its error flag."""
+    T, S = cell.packed.shape
+    round_base, _ = lane_codec.encode_totals(cell.packed, cell.nb, cell.n)
+    total = cell.stream.numel()
+    stream = torch.empty(total, dtype=torch.uint8, device=DEVICE)
+    err = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    fn = build.function("place", EARLIER_PLACE_ARGTYPES)
+    args = (build.ptr(cell.packed), build.ptr(cell.nb), build.ptr(cell.excw),
+            cell.n, T, S, build.ptr(round_base), build.ptr(stream), total,
+            build.ptr(err), build.current_stream(torch.device(DEVICE)))
+
+    def launch():
+        build.check("place", fn(*args))
+
+    def result():
+        err.zero_()
+        launch()
+        if err.item():
+            raise RuntimeError("the earlier K2 wrote past the stream")
+        return stream
+    return launch, result
 
 
 class LaneCell:
@@ -943,11 +1122,33 @@ def time_k1(cell: LaneCell, what: str) -> float:
     return cuda_ms(cell.scan)
 
 
-def time_place(cell, what: str, fn) -> float:
-    """fn() -> stream, held against the stream as it is, then timed."""
+def time_place(cell, what: str, fn, launch=None) -> float:
+    """fn() -> stream, held against the stream as it is; then launch()
+    timed (the launch alone, k2_launch), or fn() where there is none."""
     if not torch.equal(fn()[:cell.stream.numel()], cell.stream):
         raise RuntimeError(f"{cell.label}: K2 variant {what} places wrongly")
-    return cuda_ms(fn)
+    return cuda_ms(launch or fn)
+
+
+def k2_launch(cell):
+    """K2's launch as its wrapper makes it, on buffers allocated once (so
+    inside the Variant that built it): the status words and the ticket
+    zeroed, then the kernel."""
+    from .ops.place import _ARGTYPES
+    T, S = cell.packed.shape
+    total = cell.stream.numel()
+    stream = torch.empty(total, dtype=torch.uint8, device=DEVICE)
+    scratch = torch.zeros(2 * (T + 1), dtype=torch.int64, device=DEVICE)
+    status = scratch[T + 1:]
+    fn = build.function("place", _ARGTYPES)
+    args = (build.ptr(cell.packed), build.ptr(cell.nb), build.ptr(cell.excw),
+            cell.n, T, S, build.ptr(stream), total, build.ptr(scratch),
+            build.ptr(status), build.current_stream(torch.device(DEVICE)))
+
+    def go():
+        status.zero_()
+        build.check("place", fn(*args))
+    return go
 
 
 def k2_timeline(cell, emit) -> None:
@@ -1000,57 +1201,51 @@ def emit_timeline(cell, kernel: str, clk, phases, emit) -> None:
 
 
 def k2_rows(cell, emit) -> None:
-    """The earlier K2 with and without the plain round totals in front,
-    the single pass with byte stores, and as it is."""
+    """The earlier K2 with the plain round totals in front (through the
+    call, as the earlier prepared encoder made it) and alone, each design
+    step taken back, the timeline, and as it is; each row but the first
+    the launch alone (time_place), the kernel as it is also through its
+    wrapper."""
     args = (cell.packed, cell.nb, cell.excw, cell.n)
     total = cell.stream.numel()
+
+    def placed():
+        return place.place(*args, total)[0]
+
     with Variant("k2_earlier", [], earlier=["place.cu"]):
-        rb, _ = lane_codec.encode_totals(*args[:2], cell.n)
         emit(cell, "K2", "earlier + totals", time_place(
             cell, "earlier + totals", lambda: earlier_place(*args, total)))
-        emit(cell, "K2", "earlier", time_place(
-            cell, "earlier", lambda: earlier_place(*args, total, rb)))
-    with Variant("k2_narrow_look_back", [NARROW_LOOK_BACK]):
-        emit(cell, "K2", "narrow look-back", time_place(
-            cell, "narrow look-back", lambda: place.place(*args, total)[0]))
+        launch, result = earlier_k2(cell)
+        emit(cell, "K2", "earlier", time_place(cell, "earlier", result,
+                                               launch))
+    for step, patches in (("narrow look-back", [NARROW_LOOK_BACK]),
+                          ("look-back eight words a lane", [WIDE_LOOK_BACK]),
+                          ("block index", [BLOCK_INDEX]),
+                          ("relaxed publish", [RELAXED_PUBLISH]),
+                          ("pause in the look-back", [PAUSE]),
+                          ("look-back before staging", LOOK_BACK_FIRST),
+                          ("staging loads at once", [STAGE_UNROLLED]),
+                          ("two steps a chunk", [TWO_STEPS_A_CHUNK]),
+                          ("four lanes a thread", FOUR_LANES_A_THREAD),
+                          ("byte stores", [BYTE_STORES])):
+        with Variant("k2_" + step.replace(" ", "_").replace("-", "_"),
+                     patches):
+            emit(cell, "K2", step, time_place(cell, step, placed,
+                                              k2_launch(cell)))
     with Variant("k2_no_look_back", [NO_LOOK_BACK]):
-        emit(cell, "K2", "no look-back", cuda_ms(
-            lambda: place.place(*args)[0]))
-    with Variant("k2_block_index", [BLOCK_INDEX]):
-        emit(cell, "K2", "block index", time_place(
-            cell, "block index", lambda: place.place(*args, total)[0]))
-    with Variant("k2_relaxed_publish", [RELAXED_PUBLISH]):
-        emit(cell, "K2", "relaxed publish", time_place(
-            cell, "relaxed publish", lambda: place.place(*args, total)[0]))
-    with Variant("k2_pause", [PAUSE]):
-        emit(cell, "K2", "pause in the look-back", time_place(
-            cell, "pause", lambda: place.place(*args, total)[0]))
-    with Variant("k2_look_back_first", LOOK_BACK_FIRST):
-        emit(cell, "K2", "look-back before staging", time_place(
-            cell, "look-back first", lambda: place.place(*args, total)[0]))
-    with Variant("k2_stage_unrolled", [STAGE_UNROLLED]):
-        emit(cell, "K2", "staging loads at once", time_place(
-            cell, "staging loads at once",
-            lambda: place.place(*args, total)[0]))
+        emit(cell, "K2", "no look-back", cuda_ms(k2_launch(cell)))
     if cell.packed.shape[1] >= 512:  # one step a chunk
         k2_timeline(cell, emit)
-    with Variant("k2_two_steps", [TWO_STEPS_A_CHUNK]):
-        emit(cell, "K2", "two steps a chunk", time_place(
-            cell, "two steps a chunk", lambda: place.place(*args, total)[0]))
-    with Variant("k2_four_lanes", FOUR_LANES_A_THREAD):
-        emit(cell, "K2", "four lanes a thread", time_place(
-            cell, "four lanes a thread", lambda: place.place(*args, total)[0]))
-    with Variant("k2_byte_stores", [BYTE_STORES]):
-        emit(cell, "K2", "byte stores", time_place(
-            cell, "byte stores", lambda: place.place(*args, total)[0]))
     with Variant("final", []):
-        emit(cell, "K2", "as it is", time_place(
-            cell, "as it is", lambda: place.place(*args, total)[0]))
+        emit(cell, "K2", "as it is", time_place(cell, "as it is", placed,
+                                                k2_launch(cell)))
+        emit(cell, "K2", "as it is, through the wrapper", cuda_ms(placed))
 
 
 class ByteCell:
     """The byte path's input on the card, with the vbyte and streamvbyte
-    streams K7 as it is writes (K9 reads the vbyte one)."""
+    streams K7 as it is writes (K9 reads the vbyte one, K8 the streamvbyte
+    one)."""
 
     def __init__(self, label: str, values):
         self.label = label
@@ -1106,13 +1301,38 @@ def k9_launch(data, n: int):
     return go
 
 
+def k8_launch(control, data, n: int):
+    """K8's launch as its wrapper makes it (see k7_launch)."""
+    chunks = bytesplit.svb_chunks(n)
+    scratch = bytesplit.chained_scratch(chunks, data.device)
+    out = torch.empty(n, dtype=torch.int32, device=data.device)
+    fn = build.function("svb_decode", bytesplit._SVB_DEC_ARGTYPES)
+    args = (build.ptr(control), build.ptr(data), data.numel(), n,
+            build.ptr(out), build.ptr(scratch), chunks,
+            build.current_stream(data.device))
+
+    def go():
+        scratch.zero_()
+        build.check("svb_decode", fn(*args))
+    return go
+
+
+def earlier_scratch(items: int, dev):
+    """The earlier three-launch K7-K9's (tile totals i32, tile offsets i64,
+    grand total i64) of a scan over `items` items."""
+    ntiles = -(-items // bytesplit.TILE)
+    return (torch.empty(ntiles, dtype=torch.int32, device=dev),
+            torch.empty(ntiles, dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev))
+
+
 def earlier_k7(x, vbyte: bool):
     """The earlier K7 (built from earlier_csrc/ inside its Variant) on
     buffers allocated once: (launch, result), launch() its three launches
     alone, result() the launches and the sync on the stream's length, giving
     what its wrapper gave."""
     n = x.numel()
-    tot, off, total = bytesplit._scratch(n, x.device)
+    tot, off, total = earlier_scratch(n, x.device)
     out = torch.empty((5 if vbyte else 4) * n, dtype=torch.uint8,
                       device=x.device)
     control = torch.empty(-(-n // 4), dtype=torch.uint8, device=x.device)
@@ -1134,7 +1354,7 @@ def earlier_k7(x, vbyte: bool):
 def earlier_k9(data, n: int):
     """The earlier K9 as earlier_k7 gives K7: its flag word zeroed in front
     of the launches, result() raising where its wrapper raised."""
-    tot, off, total = bytesplit._scratch(data.numel(), data.device)
+    tot, off, total = earlier_scratch(data.numel(), data.device)
     out = torch.empty(n, dtype=torch.int32, device=data.device)
     err = torch.zeros(1, dtype=torch.int32, device=data.device)
     fn = build.function("vbyte_decode", EARLIER_VB_DEC_ARGTYPES)
@@ -1154,10 +1374,34 @@ def earlier_k9(data, n: int):
     return launch, result
 
 
+def earlier_k8(control, data, n: int):
+    """The earlier K8 as earlier_k9 gives K9."""
+    tot, off, total = earlier_scratch(n, data.device)
+    out = torch.empty(n, dtype=torch.int32, device=data.device)
+    err = torch.zeros(1, dtype=torch.int32, device=data.device)
+    fn = build.function("svb_decode", EARLIER_SVB_DEC_ARGTYPES)
+    args = (build.ptr(control), build.ptr(data), data.numel(), n,
+            build.ptr(tot), build.ptr(off), build.ptr(out), build.ptr(total),
+            build.ptr(err), build.current_stream(data.device))
+
+    def launch():
+        err.zero_()
+        build.check("svb_decode", fn(*args))
+
+    def result():
+        launch()
+        if err.item():
+            raise RuntimeError("the earlier K8 flagged the stream")
+        return out
+    return launch, result
+
+
 @contextlib.contextmanager
 def chunk_items(kernel: str, items: int):
-    """The wrapper of K7 or K9 sizing its scratch for chunks of `items`."""
-    name = "ENCODE_CHUNK" if kernel == "K7" else "DECODE_CHUNK"
+    """The wrapper of K7, K8 or K9 sizing its scratch for chunks of
+    `items`."""
+    name = {"K7": "ENCODE_CHUNK", "K8": "SVB_CHUNK",
+            "K9": "DECODE_CHUNK"}[kernel]
     kept = getattr(bytesplit, name)
     setattr(bytesplit, name, items)
     try:
@@ -1166,9 +1410,11 @@ def chunk_items(kernel: str, items: int):
         setattr(bytesplit, name, kept)
 
 
-def byte_timeline(cell, kernel: str, patches, fn, want, emit) -> None:
-    """K7 or K9 as it is with its timeline (K7_TIMELINE, K9_TIMELINE): the
-    wrapper's scratch is given room for six times a chunk."""
+def byte_timeline(cell, kernel: str, patches, fn, want, emit,
+                  phases=BYTE_TIMELINE_PHASES) -> None:
+    """K7, K8 or K9 as it is with its timeline (K7_TIMELINE, K8_TIMELINE,
+    K9_TIMELINE): the wrapper's scratch is given room for six times a
+    chunk."""
     kept = []
 
     def longer(chunks, dev):
@@ -1186,7 +1432,7 @@ def byte_timeline(cell, kernel: str, patches, fn, want, emit) -> None:
                            "differs")
     chunks, scratch = kept[-1]
     emit_timeline(cell, kernel, scratch[chunks + 3:].cpu().numpy().reshape(
-        chunks, 6), BYTE_TIMELINE_PHASES, emit)
+        chunks, 6), phases, emit)
 
 
 def k7_rows(cell: ByteCell, emit) -> None:
@@ -1292,6 +1538,57 @@ def k9_rows(cell: ByteCell, emit) -> None:
         emit(cell, "K9", "as it is, through the wrapper", cuda_ms(dec))
 
 
+def k8_rows(cell: ByteCell, emit) -> None:
+    """K8 on the streamvbyte stream: the earlier three launches, each
+    design step taken back, two launches, the chunk sizes, the data at an
+    odd address, the timeline, and as it is (as k7_rows)."""
+    n, (ctrl, data) = cell.n, cell.svb
+    want = cell.x
+
+    def dec():
+        return bytesplit.svb_decode(ctrl, data, n)
+
+    with Variant("k8_earlier", [], earlier=["svb_decode.cu",
+                                            "bytescan.cuh"]):
+        launch, result = earlier_k8(ctrl, data, n)
+        emit(cell, "K8", "earlier", time_bytes(cell, "K8", "earlier", result,
+                                               want, launch))
+    fname = "svb_decode.cu"
+    for step, patches in (("byte loads behind a branch", K8_GATHER),
+                          ("4-byte stores", [K8_WORD_STORES]),
+                          ("two launches", K8_TWO_LAUNCHES),
+                          ("look-back two words a lane", [k8_look(2)]),
+                          ("look-back eight words a lane", [k8_look(8)]),
+                          ("registers uncapped", [uncapped(fname)]),
+                          ("five blocks an SM", [K8_FIVE_BLOCKS])):
+        with Variant("k8_" + step.replace(" ", "_").replace("-", "_"),
+                     patches):
+            emit(cell, "K8", step, time_bytes(cell, "K8", step, dec, want,
+                                              k8_launch(ctrl, data, n)))
+    with Variant("k8_no_look_back", [NO_BYTE_LOOK_BACK]):
+        emit(cell, "K8", "no look-back", cuda_ms(k8_launch(ctrl, data, n)))
+    for threads in (128, 512):
+        with Variant(f"k8_threads{threads}", byte_threads(fname, threads)), \
+                chunk_items("K8", 16 * threads):
+            step = f"chunks of {16 * threads}"
+            emit(cell, "K8", step, time_bytes(cell, "K8", step, dec, want,
+                                              k8_launch(ctrl, data, n)))
+    byte_timeline(cell, "K8", K8_TIMELINE, dec, want, emit,
+                  K8_TIMELINE_PHASES)
+    with Variant("final", []):
+        emit(cell, "K8", "as it is", time_bytes(
+            cell, "K8", "as it is", dec, want, k8_launch(ctrl, data, n)))
+        # the stream as the codecs hand it over: the data right behind the
+        # control bytes
+        joined = torch.cat([ctrl, data])
+        jc, jd = joined[:ctrl.numel()], joined[ctrl.numel():]
+        emit(cell, "K8", "as it is, data behind the control bytes",
+             time_bytes(cell, "K8", "data behind the control bytes",
+                        lambda: bytesplit.svb_decode(jc, jd, n), want,
+                        k8_launch(jc, jd, n)))
+        emit(cell, "K8", "as it is, through the wrapper", cuda_ms(dec))
+
+
 class Cell:
     """One input staged as the codec's encode() and decode() stage it, with
     the stream the kernels as they are write and read."""
@@ -1368,7 +1665,7 @@ def main(argv=None) -> int:
              dense_input(1 << (20 if args.quick else 22)))
     ] if kernels & {"K2", "K5", "K6"} else []
     byte = (ByteCell("the byte path, zipf20", zipf20_input(1 << log2n))
-            if kernels & {"K7", "K9"} else None)
+            if kernels & {"K7", "K8", "K9"} else None)
     recs = []
 
     def emit(cell, kernel, step, ms):
@@ -1392,6 +1689,9 @@ def main(argv=None) -> int:
         if "K7" in kernels:
             emit(byte, "K7", "as it is", cuda_ms(
                 lambda: bytesplit.vbyte_encode(byte.x)))
+        if "K8" in kernels:
+            emit(byte, "K8", "as it is", cuda_ms(
+                lambda: bytesplit.svb_decode(*byte.svb, byte.n)))
         if "K9" in kernels:
             emit(byte, "K9", "as it is", cuda_ms(
                 lambda: bytesplit.vbyte_decode(byte.vb, byte.n)))
@@ -1441,6 +1741,8 @@ def main(argv=None) -> int:
                     emit(cell, "K6", step, cuda_ms(cell.scan))
         if "K7" in kernels:
             k7_rows(byte, emit)
+        if "K8" in kernels:
+            k8_rows(byte, emit)
         if "K9" in kernels:
             k9_rows(byte, emit)
     text = json.dumps({"card": smi, "runs": RUNS, "lanes": LANES,

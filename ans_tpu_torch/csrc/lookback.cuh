@@ -1,5 +1,5 @@
 // A chained scan with decoupled look-back across the blocks of one launch
-// (K7, K9; K2 keeps its own copy in place.cu).
+// (K2, K7, K8, K9).
 //
 // Blocks run in no order.  A block takes its chunk of consecutive items by
 // an atomic ticket, so every chunk before it is held by a block that has
@@ -17,9 +17,10 @@
 namespace lookback {
 
 constexpr uint64_t AGGREGATE = 1, PREFIX = 2;  // flags of a status word
-// status words a lane reads in one round trip: 64 chunks a window.  Wider
-// windows (K2's 8) lost here: hundreds of short blocks poll the same few
-// lines of the status array, and each wider read slowed the others
+// status words a lane reads in one round trip unless the kernel says
+// otherwise: 64 chunks a window.  Wider windows (K2's 8) lost on the byte
+// kernels: hundreds of short blocks poll the same few lines of the status
+// array, and each wider read slowed the others
 constexpr int LOOK = 2;
 
 // The chunk of this block: thread 0 draws the ticket, every thread returns
@@ -58,23 +59,24 @@ __device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
 }
 
 // The sum of the values of all chunks before `chunk` (> 0), by one whole
-// warp: lane i reads the status words of chunks chunk - 1 - LOOK i - k
-// (k < LOOK), 32 LOOK chunks a window, nearest first.  The nearest chunk
+// warp: lane i reads the status words of chunks chunk - 1 - WORDS i - k
+// (k < WORDS), 32 WORDS chunks a window, nearest first.  The nearest chunk
 // with its prefix ends the walk, and the walk waits only for the words
 // between it and `chunk`: a word past it is not waited for, so a slow block
 // further back holds no one up.  A window without a prefix is waited for
 // whole, its aggregates are added, and the walk goes a window further back.
+template <int WORDS = LOOK>
 __device__ __forceinline__ uint64_t look_back(const uint64_t* status,
                                               int64_t chunk) {
   const int me = threadIdx.x & 31;
   uint64_t excl = 0;
-  for (int64_t j0 = chunk - 1 - LOOK * me;; j0 -= 32 * LOOK) {
+  for (int64_t j0 = chunk - 1 - WORDS * me;; j0 -= 32 * WORDS) {
     uint64_t sum;
     int last;  // the first lane holding a prefix, 32 if none
     while (true) {
-      uint64_t w[LOOK];
+      uint64_t w[WORDS];
 #pragma unroll
-      for (int k = 0; k < LOOK; ++k) {
+      for (int k = 0; k < WORDS; ++k) {
         // before chunk 0: a prefix of 0 (loaded from chunk 0's word and
         // replaced, so that no load waits on a condition)
         const int64_t j = j0 - k;
@@ -86,7 +88,7 @@ __device__ __forceinline__ uint64_t look_back(const uint64_t* status,
       sum = 0;
       bool found = false, waiting = false;
 #pragma unroll
-      for (int k = 0; k < LOOK; ++k) {
+      for (int k = 0; k < WORDS; ++k) {
         if (!found) {
           sum += w[k] >> 2;
           waiting |= (w[k] & 3) == 0;
@@ -104,12 +106,14 @@ __device__ __forceinline__ uint64_t look_back(const uint64_t* status,
 
 // The exclusive prefix of `chunk`, whose own value is `agg`, by warp 0 of
 // the block (the other warps return 0 and must not read it): it looks back
-// (chunk 0 need not) and publishes the chunk's inclusive prefix.
+// (chunk 0 need not), WORDS status words a lane, and publishes the chunk's
+// inclusive prefix.
+template <int WORDS = LOOK>
 __device__ __forceinline__ uint64_t exclusive_prefix(uint64_t* status,
                                                      int64_t chunk,
                                                      uint64_t agg) {
   if (threadIdx.x >= 32) return 0;
-  const uint64_t ex = chunk == 0 ? 0 : look_back(status, chunk);
+  const uint64_t ex = chunk == 0 ? 0 : look_back<WORDS>(status, chunk);
   if (threadIdx.x == 0 && chunk > 0) publish(status + chunk, ex + agg, PREFIX);
   return ex;
 }

@@ -30,17 +30,18 @@
 // (or fewer) neighbouring lanes and reads them with 16-byte loads, so one
 // block scan gives the ranks of every round of every step of the chunk and
 // the chunk's byte count.  The chunks' offsets come from a chained scan
-// with decoupled look-back: the block publishes its count in a status word
-// at once, stages its bytes in shared memory, then one warp reads its
-// predecessors' status words 256 at a time (one round trip to L2; hundreds
-// of chunks are in flight), summing counts back to the nearest chunk that
-// has published its inclusive prefix, and publishes its own.  All bytes of a
+// with decoupled look-back (lookback.cuh): the block publishes its count in
+// a status word at once, stages its bytes in shared memory, then one warp
+// reads its predecessors' status words 64 at a time (one round trip to
+// L2), summing counts back to the nearest chunk that has published its
+// inclusive prefix, and publishes its own.  All bytes of a
 // chunk are one contiguous run of the stream, written with 16-byte stores on
 // its aligned interior and byte stores at its two ends.  The TPU kernel's
 // routing network, its section cutting and its VMEM batch sizing are not
 // carried over: the stream is written flat (sections are contiguous
 // step-aligned slices of it).
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -55,81 +56,12 @@ inline int threads_per_step(int S) {
   const int t = (S + LANES_A_THREAD - 1) / LANES_A_THREAD;
   return min(THREADS, max(32, (t + 31) / 32 * 32));
 }
-constexpr uint64_t AGGREGATE = 1, PREFIX = 2;  // flags of a status word
 
-// A status word: (value << 2) | flag, in one 64-bit word, so that the flag
-// and its value are read together.
-__device__ __forceinline__ void publish(uint64_t* p, uint64_t value,
-                                        uint64_t flag) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p),
-               "l"((value << 2) | flag)
-               : "memory");
-}
-
-// A status word as it stands: relaxed, so that a lane's loads are all in
-// flight at once (the flag and its value are one word; nothing else is read
-// on the strength of it).
-__device__ __forceinline__ uint64_t status_of(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    v += __shfl_xor_sync(lane::FULL_MASK, v, d);
-  return v;
-}
-
-constexpr int LOOK = 8;  // status words a lane reads in one round trip
-
-// The bytes of all chunks before `chunk` (> 0), by warp 0 of the block:
-// lane i reads the status words of chunks chunk - 1 - LOOK i - k (k < LOOK),
-// 32 LOOK chunks a window, until every word of the window is published;
-// the nearest chunk with its prefix ends the walk, otherwise the window's
-// counts are added and the walk goes a window further back.  A window is
-// one round trip to L2: as many chunks are in flight as blocks (hundreds),
-// and the nearest prefix lies about that far back.
-__device__ __forceinline__ uint64_t look_back(const uint64_t* status,
-                                              int64_t chunk) {
-  const int me = threadIdx.x & 31;
-  uint64_t excl = 0;
-  for (int64_t j0 = chunk - 1 - LOOK * me;; j0 -= 32 * LOOK) {
-    uint64_t w[LOOK];
-    bool unpublished;
-    do {
-      bool waiting = false;
-#pragma unroll
-      for (int k = 0; k < LOOK; ++k) {
-        // before chunk 0: a prefix of 0 (loaded from chunk 0's word and
-        // replaced, so that no load waits on a condition)
-        const int64_t j = j0 - k;
-        const uint64_t v = status_of(status + (j >= 0 ? j : 0));
-        w[k] = j >= 0 ? v : PREFIX;
-        waiting |= (w[k] & 3) == 0;
-      }
-      unpublished = __any_sync(lane::FULL_MASK, waiting);
-    } while (unpublished);
-    // this lane's counts back to its nearest prefix, or all of them
-    uint64_t sum = 0;
-    bool found = false;
-#pragma unroll
-    for (int k = 0; k < LOOK; ++k) {
-      if (!found) sum += w[k] >> 2;
-      found |= (w[k] & 3) == PREFIX;
-    }
-    const unsigned prefixes = __ballot_sync(lane::FULL_MASK, found);
-    if (prefixes) {
-      const int first = __ffs(prefixes) - 1;
-      return excl + warp_sum(me <= first ? sum : 0);
-    }
-    excl += warp_sum(sum);
-  }
-}
+// status words a lane of the look-back (lookback.cuh) reads in one round
+// trip: 64 chunks a window.  Eight (256 chunks, about as many as are in
+// flight), which K2's own copy of the look-back read, were slower
+// (bench_steps' row "look-back eight words a lane")
+constexpr int LOOK = 2;
 
 // The values of lanes [l, l + VEC) of the row at `row`.  FAST: all of them
 // in range and the rows 16-byte aligned, one vector load; else lane by lane
@@ -221,11 +153,8 @@ __global__ void __launch_bounds__(THREADS)
                  uint64_t* status, unsigned int* ticket) {
   extern __shared__ uint32_t staged[];  // the chunk's bytes, then 16 spare
   __shared__ lane::ScanScratch scratch;
-  __shared__ int64_t chunk_s;
   __shared__ uint64_t excl_s;
-  if (threadIdx.x == 0) chunk_s = atomicAdd(ticket, 1u);
-  __syncthreads();
-  const int64_t chunk = chunk_s;
+  const int64_t chunk = lookback::take_ticket(ticket);
   const int g = threadIdx.x / TPS;
   const int64_t t = chunk * G + g;
   const int l0 = (threadIdx.x % TPS) * LPT;
@@ -262,7 +191,8 @@ __global__ void __launch_bounds__(THREADS)
     at += scratch.w[r][w1] - scratch.w[r][w0];
   }
   if (threadIdx.x == 0)
-    publish(status + chunk, agg, chunk == 0 ? PREFIX : AGGREGATE);
+    lookback::publish(status + chunk, agg,
+                      chunk == 0 ? lookback::PREFIX : lookback::AGGREGATE);
 
   uint8_t* bytes = reinterpret_cast<uint8_t*>(staged);
   if (fast)
@@ -272,13 +202,8 @@ __global__ void __launch_bounds__(THREADS)
   // staged first: by then the predecessors' counts are mostly published (a
   // look-back started before staging spun on them, and its reads slowed
   // every block down)
-  if (threadIdx.x < 32) {
-    const uint64_t ex = chunk == 0 ? 0 : look_back(status, chunk);
-    if (threadIdx.x == 0) {
-      if (chunk > 0) publish(status + chunk, ex + agg, PREFIX);
-      excl_s = ex;
-    }
-  }
+  const uint64_t ex = lookback::exclusive_prefix<LOOK>(status, chunk, agg);
+  if (threadIdx.x == 0) excl_s = ex;
   __syncthreads();
   const int64_t p0 = static_cast<int64_t>(excl_s);
   if (t < T && threadIdx.x % TPS == 0) offsets[t] = p0 + before;

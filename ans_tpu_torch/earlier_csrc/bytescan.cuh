@@ -1,6 +1,5 @@
-// A copy of csrc/bytescan.cuh as the earlier K7 and K9 included it, so that
-// they still build when the header leaves csrc/ (bench_steps copies it
-// over its copy of csrc/ with them).
+// The header the earlier K7, K8 and K9 included, kept here since it left
+// csrc/ with them (bench_steps copies it over its copy of csrc/ with them).
 // Shared pieces of the byte-splitter kernels (K7, K8, K9): each is a scan
 // over variable-length items whose result drives a scatter or a gather.
 // All three run the same three launches: a tile's total per block, one

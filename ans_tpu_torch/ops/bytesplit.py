@@ -35,11 +35,13 @@ svb_decode_launches = 0
 vbyte_decode_launches = 0
 
 MAX_ELEMENTS = 1 << 28  # keeps every stream below 2^31 bytes
-TILE = 1024             # elements per block of K8: csrc/bytescan.cuh's TILE,
-                        # which sizes its scratch
-ENCODE_CHUNK = 4096     # elements a block of K7 takes, and stream bytes a
-DECODE_CHUNK = 8192     # block of K9: the CHUNK of csrc/bytesplit_encode.cu
-                        # and of csrc/vbyte_decode.cu, which sizes the scratch
+TILE = 1024             # items a block of the earlier three-launch K7-K9
+                        # (earlier_csrc/bytescan.cuh's TILE), which sizes
+                        # their scratch in bench_steps
+ENCODE_CHUNK = 4096     # elements a block of K7 takes, stream bytes a
+DECODE_CHUNK = 8192     # block of K9, and elements a block of K8: the CHUNK
+SVB_CHUNK = 4096        # of csrc/bytesplit_encode.cu, csrc/vbyte_decode.cu
+                        # and csrc/svb_decode.cu, which sizes the scratch
 
 
 def _check_values(name: str, x: torch.Tensor) -> int:
@@ -131,6 +133,10 @@ def vbyte_decode_plain(data: torch.Tensor, n: int) -> torch.Tensor:
     return (val & 0xFFFFFFFF).to(torch.int32)
 
 
+_SVB_SHORT = ("corrupt streamvbyte stream: an element passes the end of "
+              "the data bytes")
+
+
 def svb_decode_plain(control: torch.Tensor, data: torch.Tensor,
                      n: int) -> torch.Tensor:
     """Plain version of K8: n elements of a streamvbyte stream as (n,)
@@ -146,8 +152,7 @@ def svb_decode_plain(control: torch.Tensor, data: torch.Tensor,
                      dim=-1).reshape(-1)[:n] + 1
     start, total = _starts(ln)
     if total > data.numel():
-        raise ValueError("corrupt streamvbyte stream: an element passes "
-                         "the end of the data bytes")
+        raise ValueError(_SVB_SHORT)
     d = data.to(torch.int64)
     val = torch.zeros_like(ln)
     for j in range(4):
@@ -165,15 +170,6 @@ _ENC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int, ct.c_void_p, ct.c_void_p,
                  ct.c_void_p, ct.c_int64, ct.c_void_p]
 
 
-def _scratch(items: int, dev):
-    """K8's (tile totals i32, tile offsets i64, grand total i64) of a scan
-    over `items` items."""
-    ntiles = -(-items // TILE)
-    return (torch.empty(ntiles, dtype=torch.int32, device=dev),
-            torch.empty(ntiles, dtype=torch.int64, device=dev),
-            torch.zeros(1, dtype=torch.int64, device=dev))
-
-
 def encode_chunks(n: int) -> int:
     """K7's chunks for n elements."""
     return -(-n // ENCODE_CHUNK)
@@ -185,10 +181,16 @@ def decode_chunks(length: int, address: int) -> int:
     return -(-(address % 16 + length) // DECODE_CHUNK)
 
 
+def svb_chunks(n: int) -> int:
+    """K8's chunks for n elements."""
+    return -(-n // SVB_CHUNK)
+
+
 def chained_scratch(chunks: int, dev) -> torch.Tensor:
-    """The scratch of K7 and K9's chained scan, one allocation, zeroed: a
-    status word for each chunk, the ticket, the grand total (K7's stream
-    length, K9's terminator count) and K9's flag word."""
+    """The scratch of K7, K8 and K9's chained scan, one allocation,
+    zeroed: a status word for each chunk, the ticket, the grand total (K7's
+    stream length, K8's data length, K9's terminator count) and K9's flag
+    word."""
     return torch.zeros(chunks + 3, dtype=torch.int64, device=dev)
 
 
@@ -268,8 +270,7 @@ def vbyte_decode(data: torch.Tensor, n: int) -> torch.Tensor:
 
 
 _SVB_DEC_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int64,
-                     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                     ct.c_void_p, ct.c_void_p]
+                     ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_void_p]
 
 
 def svb_decode(control: torch.Tensor, data: torch.Tensor,
@@ -288,16 +289,16 @@ def svb_decode(control: torch.Tensor, data: torch.Tensor,
                          "bytes")
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
-    tot, off, total = _scratch(n, dev)
+    if data.numel() == 0:
+        raise ValueError(_SVB_SHORT)
+    chunks = svb_chunks(n)
+    scratch = chained_scratch(chunks, dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("svb_decode", _SVB_DEC_ARGTYPES)
     build.check("svb_decode", fn(
-        build.ptr(control), build.ptr(data), data.numel(), n,
-        build.ptr(tot), build.ptr(off), build.ptr(out), build.ptr(total),
-        build.ptr(err), build.current_stream(dev)))
+        build.ptr(control), build.ptr(data), data.numel(), n, build.ptr(out),
+        build.ptr(scratch), chunks, build.current_stream(dev)))
     svb_decode_launches += 1
-    if err.item():
-        raise ValueError("corrupt streamvbyte stream: an element passes "
-                         "the end of the data bytes")
+    if scratch[chunks + 1].item() > data.numel():
+        raise ValueError(_SVB_SHORT)
     return out

@@ -55,9 +55,9 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      and streamvbyte split streams, vbyteANS and streamvbyteANS blobs equal
      to the records, decode exact; K7, K1, K2 launched on encode and K4 and
      K9 / K8 on decode; the AnsByte prepared decode timed under "direct"
-     and under "search"; K7 (both formats) and K9 give the same output on
-     five more runs, and each byte kernel's share of its byte bound is
-     printed.
+     and under "search"; K7 (both formats), K8 and K9 give the same output
+     on five more runs, K8's chunk count and ptxas report are printed, and
+     each byte kernel's share of its byte bound.
   Phases 5-8 then hold their kernels against the plain versions at their
   own shapes (K5 in both instances) and time both.
 
@@ -90,7 +90,7 @@ FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
 RUNS, PLAIN_RUNS = 5, 1
 PLACE_REPEATS = 5  # K2 reruns that must write the same bytes
-BYTE_REPEATS = 5  # K7 and K9 reruns that must give the same output
+BYTE_REPEATS = 5  # K7, K8 and K9 reruns that must give the same output
 DEVICE = "cuda"
 # published rates of the H100 SXM: device memory, and 32-bit arithmetic
 # outside the tensor cores
@@ -391,8 +391,8 @@ def check_kernels(st: Stage, timed: bool, plain_search: bool = True,
 
 def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
     """K7 (both formats), K8 and K9 on the (n,) i32 values x against their
-    plain versions, and the round trip; when timed, K7 and K9 give the same
-    output on BYTE_REPEATS more runs (their status words are zeroed every
+    plain versions, and the round trip; when timed, K7, K8 and K9 give the
+    same output on BYTE_REPEATS more runs (their status words are zeroed every
     call), and timings and bounds as check_kernels gives them.  K7's time
     is the vbyte format's (5 phases of compares against streamvbyte's 4);
     streamvbyte's is printed."""
@@ -425,6 +425,8 @@ def check_bytesplit(x: torch.Tensor, timed: bool) -> dict:
                     f"a repeated run")
             require(torch.equal(bs.vbyte_decode(vb, n), x),
                     f"vbyte_decode {where}: other values on a repeated run")
+            require(torch.equal(bs.svb_decode(ctrl, data, n), x),
+                    f"svb_decode {where}: other values on a repeated run")
         pairs = {
             "bytesplit_encode": (lambda: bs.vbyte_encode(x),
                                  lambda: bs.vbyte_encode_plain(x),
@@ -911,13 +913,19 @@ def main() -> int:
     brec = LANE_FIXTURES / "fullwidth_bytes.json"
     byte_run = run_byte_codec(card, "vbyteANS", z20, brec)
     svb_run = run_byte_codec(card, "streamvbyteANS", z20, brec)
+    from ans_tpu_torch.ops import bytesplit
+    ptxas = "; ".join(line for _, line in ptxas_report(
+        build.build_log.get("svb_decode", "")))
+    print(f"svb_decode at n=2^25: {bytesplit.svb_chunks(FULL_N)} chunks of "
+          f"{bytesplit.SVB_CHUNK} elements, one launch; ptxas: "
+          f"{ptxas or 'not rebuilt by this process'}")
     sres = check_bytesplit(on_card(z20), timed=True)
     merge_errs(errs, sres)
     print_timed(card, "the byte path, zipf20, n=2^25", sres)
     print(f"{card} bytesplit_encode, streamvbyte format, same input: "
           f"kernel {sres['bytesplit_encode']['svb_ms']:.3f} ms")
     print(f"{card} the byte path's kernels against their byte bounds, "
-          f"{1 + BYTE_REPEATS} runs of K7 and K9 with the same output: "
+          f"{1 + BYTE_REPEATS} runs of K7, K8 and K9 with the same output: "
           + ", ".join(f"{k} {r['bound_ms'] / r['ms']:.1%} of its bound "
                       f"({r['bound_ms']:.4f} of {r['ms']:.3f} ms)"
                       for k, r in sres.items()))

@@ -242,3 +242,17 @@ def test_chained_scratch_sizing(n):
     assert bs.decode_chunks(C - 15, 15) == 1
     assert bs.decode_chunks(C - 15, 16 + 15) == 1
     assert bs.decode_chunks(C - 14, 15) == 2
+
+
+@pytest.mark.parametrize("n", [1, bs.SVB_CHUNK - 1, bs.SVB_CHUNK,
+                               bs.SVB_CHUNK + 1, 1 << 25])
+def test_svb_chunks_sizing(n):
+    """K8's scratch: chunks of SVB_CHUNK elements, the last one partial, and
+    the same zeroed scratch as K7 and K9 (a status word for each chunk, the
+    ticket, then the data length the n elements take)."""
+    chunks = bs.svb_chunks(n)
+    assert chunks == -(-n // bs.SVB_CHUNK)
+    assert (chunks - 1) * bs.SVB_CHUNK < n <= chunks * bs.SVB_CHUNK
+    scratch = bs.chained_scratch(chunks, "cpu")
+    assert scratch.dtype == torch.int64 and scratch.numel() == chunks + 3
+    assert not scratch.any()

@@ -21,10 +21,12 @@ or read from device memory) every lane count, streams shorter than one
 that leaves the ring no room; for K6 scans that end inside a tile of
 steps, inside a row of lanes and inside a block of lanes; for the byte
 splitters K7-K9 every element
-length, ragged sizes and corrupt streams, and for the single passes K7
-and K9 sizes at chunk multiples +-1, elements across chunk boundaries,
-streams at every odd address, a look-back past one window and repeated
-calls; for the step probe every chain against its plain version.
+length, ragged sizes and corrupt streams, and for the single passes K7,
+K8 and K9 sizes at chunk multiples +-1, elements across chunk boundaries
+(K8: every length at a chunk's last element, a partial last control
+byte), streams at every odd address, a look-back past one window,
+repeated calls and (K8) streams one byte short; for the step probe every
+chain against its plain version.
 """
 
 import hashlib
@@ -1147,3 +1149,91 @@ def test_vbyte_decode_more_and_fewer_elements_than_n(cuda):
         _vb_decode_counted(vb, n + 2)
     with pytest.raises(ValueError, match=f"holds {n + 1} elements"):
         _vb_decode_counted(longer, n + 5)
+
+
+# K8 as a chained scan with decoupled look-back: chunks of
+# bytesplit.SVB_CHUNK elements, the data staged as aligned 16-byte granules
+
+V = bytesplit.SVB_CHUNK
+
+
+def _svb_decode_counted(control, data, n):
+    before = bytesplit.svb_decode_launches
+    try:
+        return bytesplit.svb_decode(control, data, n)
+    finally:
+        assert bytesplit.svb_decode_launches == before + 1
+
+
+def _svb_checked(control, data, n):
+    """K8 (one launch) held against its plain version."""
+    got = _svb_decode_counted(control, data, n)
+    assert torch.equal(got, bytesplit.svb_decode_plain(control, data, n))
+    return got
+
+
+@pytest.mark.parametrize("n", [V - 1, V, V + 1, V + 2, 2 * V - 3, 2 * V,
+                               3 * V + 1])
+def test_svb_decode_at_chunk_edges(cuda, n):
+    """K8 at chunk multiples +-1 and with a partial last control byte; and
+    three elements fewer than the stream holds, so that the last control
+    byte's keys past n are not counted."""
+    x = torch.from_numpy(_mixed(n, n + 2).view(np.int32)).to(cuda)
+    ctrl, data = bytesplit.svb_encode(x)
+    assert torch.equal(_svb_checked(ctrl, data, n), x)
+    assert torch.equal(_svb_checked(ctrl, data, n - 3), x[: n - 3])
+
+
+@pytest.mark.parametrize("mis", range(1, 16))
+def test_svb_decode_at_misaligned_addresses(cuda, mis):
+    """Control bytes, data bytes and both at addresses 1-15 past a 16-byte
+    boundary: the data's first and last granules take byte loads."""
+    n = 3 * V + 7
+    x = torch.from_numpy(_mixed(n, mis).view(np.int32)).to(cuda)
+    ctrl, data = bytesplit.svb_encode(x)
+    for c, d in ((_at(ctrl, mis), data), (ctrl, _at(data, mis)),
+                 (_at(ctrl, mis), _at(data, 16 - mis))):
+        assert torch.equal(_svb_checked(c, d, n), x)
+
+
+def test_svb_decode_look_back_past_one_window(cuda):
+    """n = 2^20 + 3: 257 chunks, past one look-back window (64 chunks at two
+    status words a lane, 256 at eight); the same values on five repeated
+    calls (the status words are zeroed every call)."""
+    n = (1 << 20) + 3
+    x = torch.from_numpy(_mixed(n, 20).view(np.int32)).to(cuda)
+    ctrl, data = bytesplit.svb_encode(x)
+    assert bytesplit.svb_chunks(n) > 32 * 8
+    assert torch.equal(_svb_checked(ctrl, data, n), x)
+    for _ in range(5):
+        assert torch.equal(_svb_decode_counted(ctrl, data, n), x)
+
+
+@pytest.mark.parametrize("n", [5, V - 1, V + 1, 2 * V + 5])
+def test_svb_decode_short_streams_raise(cuda, n):
+    """Data one byte short raises from the data length the kernel writes;
+    control bytes one short, and no data at all, raise before a launch."""
+    x = torch.from_numpy(_mixed(n, n).view(np.int32)).to(cuda)
+    ctrl, data = bytesplit.svb_encode(x)
+    with pytest.raises(ValueError, match="passes the end of the data bytes"):
+        _svb_decode_counted(ctrl, data[:-1].clone(), n)
+    before = bytesplit.svb_decode_launches
+    with pytest.raises(ValueError, match="too few control bytes"):
+        bytesplit.svb_decode(ctrl[:-1].clone(), data, n)
+    with pytest.raises(ValueError, match="passes the end of the data bytes"):
+        bytesplit.svb_decode(ctrl, data[:0], n)
+    assert bytesplit.svb_decode_launches == before
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [V, 2 * V, 2 * V + 1])
+def test_svb_every_length_at_a_chunks_last_element(cuda, length, n):
+    """A chunk's last element (and the stream's) 1-4 bytes long behind
+    elements of every length: its bytes end the chunk's data range."""
+    vals = _mixed(n, 10 * n + length)
+    big = np.uint32({1: 0x7F, 2: 0xABCD, 3: 0xABCDEF, 4: 0xFEDCBA98}[length])
+    vals[V - 1::V] = big
+    vals[-1] = big
+    x = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    ctrl, data = bytesplit.svb_encode(x)
+    assert torch.equal(_svb_checked(ctrl, data, n), x)

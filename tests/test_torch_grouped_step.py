@@ -209,7 +209,8 @@ def test_bench_steps_substitutions_match_the_sources():
                *bench_steps.FOUR_LOOKUP_WARPS, bench_steps.chain_warps(2),
                bench_steps.NO_LOOKUPS, bench_steps.NO_CHAIN,
                bench_steps.BYTE_STORES, *bench_steps.FOUR_LANES_A_THREAD,
-               bench_steps.NARROW_LOOK_BACK, bench_steps.NO_LOOK_BACK,
+               bench_steps.NARROW_LOOK_BACK, bench_steps.WIDE_LOOK_BACK,
+               bench_steps.NO_LOOK_BACK,
                bench_steps.TWO_STEPS_A_CHUNK, bench_steps.BLOCK_INDEX,
                bench_steps.RELAXED_PUBLISH, *bench_steps.TIMELINE,
                bench_steps.STAGE_UNROLLED, bench_steps.PAUSE,
@@ -232,34 +233,45 @@ BYTE_PATCHES = [
     bench_steps.K9_BRANCHED_LOADS, bench_steps.K9_GLOBAL_WALK,
     bench_steps.K9_SCALAR_LOADS, *bench_steps.K9_BY_ELEMENT,
     bench_steps.K9_WORD_STORES, *bench_steps.K9_LOOK_BACK_FIRST,
-    *bench_steps.K9_TIMELINE]
+    *bench_steps.K9_TIMELINE,
+    *bench_steps.byte_threads("svb_decode.cu", 128),
+    bench_steps.uncapped("svb_decode.cu"), bench_steps.k8_look(2),
+    bench_steps.K8_FIVE_BLOCKS,
+    *bench_steps.K8_GATHER,
+    bench_steps.K8_WORD_STORES, *bench_steps.K8_TWO_LAUNCHES,
+    *bench_steps.K8_TIMELINE]
 
 
 @pytest.mark.parametrize("patch", BYTE_PATCHES,
                          ids=[f"{p[0]}-{i}" for i, p in enumerate(
                              BYTE_PATCHES)])
 def test_bench_steps_byte_substitutions_match_the_sources(patch):
-    """The same for K7 and K9's design steps: each text stands in its
+    """The same for K7, K8 and K9's design steps: each text stands in its
     source exactly once."""
     fname, old, new = patch
     assert (build.CSRC / fname).read_text().count(old) == 1, (fname, old)
     assert new != old
 
 
-def test_bench_steps_earlier_byte_sources_stand_beside_the_kernels():
-    """The earlier K7 and K9 (three launches over csrc/bytescan.cuh) are
-    kept whole with a copy of that header, export the C entry points they
-    had, and no codec path builds them."""
-    for name in ("bytesplit_encode", "vbyte_decode"):
-        text = (bench_steps.EARLIER / f"{name}.cu").read_text()
-        assert f'extern "C" int {name}(' in text
-        assert '#include "bytescan.cuh"' in text
-        assert "scan_totals_kernel<<<1, 1024" in text
-        assert "lookback.cuh" not in text
-        assert "lookback.cuh" in (build.CSRC / f"{name}.cu").read_text()
-    header = (bench_steps.EARLIER / "bytescan.cuh").read_text()
-    assert "scan_totals_kernel" in header and header.endswith(
-        (build.CSRC / "bytescan.cuh").read_text())
+@pytest.mark.parametrize("name", ["bytesplit_encode", "svb_decode",
+                                  "vbyte_decode"])
+def test_bench_steps_earlier_byte_sources_stand_beside_the_kernels(name):
+    """The earlier K7, K8 and K9 (three launches over bytescan.cuh) are
+    kept whole with that header in earlier_csrc/, export the C entry points
+    they had, and no codec path builds them: the kernels are single passes
+    on lookback.cuh, and no source in csrc/ includes bytescan.cuh, which
+    lives only beside the earlier forms."""
+    text = (bench_steps.EARLIER / f"{name}.cu").read_text()
+    assert f'extern "C" int {name}(' in text
+    assert '#include "bytescan.cuh"' in text
+    assert "scan_totals_kernel<<<1, 1024" in text
+    assert "lookback.cuh" not in text
+    assert "lookback.cuh" in (build.CSRC / f"{name}.cu").read_text()
+    assert "scan_totals_kernel" in (
+        bench_steps.EARLIER / "bytescan.cuh").read_text()
+    assert not (build.CSRC / "bytescan.cuh").exists()
+    for src in build.CSRC.glob("*.cu*"):
+        assert "bytescan.cuh" not in src.read_text(), src.name
 
 
 def test_bench_steps_earlier_sources_stand_beside_the_kernels():

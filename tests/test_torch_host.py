@@ -277,7 +277,7 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
     them) and every *.cuh includes the CUDA runtime, <cstdint> and the
     port's own headers, nothing else: no library supplies a kernel."""
     own = {p.name for p in build.CSRC.glob("*.cuh")}
-    assert {"common.cuh", "lockstep.cuh", "bytescan.cuh"} <= own
+    assert {"common.cuh", "lockstep.cuh", "lookback.cuh"} <= own
     sources = [build.CSRC / f"{name}.cu" for name in build.KERNELS]
     assert build.CSRC / "op_probe.cu" in sources and len(sources) == 10
     assert sorted(sources) == sorted(build.CSRC.glob("*.cu"))
