@@ -94,7 +94,7 @@ def time_engines(label: str, table, payload, states, n: int, S: int,
                   "direct": decode.decode_direct}[name]
 
         def forced():
-            return kernel(pd.stream, pd.states, pd.table, n, T,
+            return kernel(pd.stream, pd.states[0], pd.table, n, T,
                           instance="global")
 
         if not torch.equal(forced().reshape(-1)[:n], want):

@@ -5,7 +5,7 @@ main path and K2 on the grouped path; K7 (csrc/bytesplit_encode.cu), K8
 (csrc/svb_decode.cu) and K9 (csrc/vbyte_decode.cu) on the byte path.
 
     python3 -m ans_tpu_torch.bench_steps [--out FILE] [--quick] [--baseline]
-        [--kernels K1,K2,K5,K6,K7,K8,K9]
+        [--kernels K1,K2,K5,K6,K7,K8,K9 (with --baseline also K3,K4,PE)]
 
 The sources keep one form of each kernel.  This script rebuilds the
 earlier forms from them: it copies csrc/ into the build directory, applies
@@ -146,8 +146,13 @@ path) for K1 and K2; zipf20 (n = 2^25) through K7, its vbyte stream
 bytes) through K8.  Every variant's output is held against the
 final kernel's.  Times are CUDA events, min of 5 after a warm-up.
 --baseline times only the kernels as they are, through calls every version
-of the port has (to time an older tree, copy this file into it).  Prints one line per variant with the
-card's name and power limit, then one JSON object.  Imports no JAX.
+of the port has (to time an older tree, copy this file into it); there
+`--kernels` also takes K3 and K4, the main path's decodes, and PE, the
+prepared encode (`models.prepare_encoder`: the scan and the placement
+with their wrappers' host work) of the main and the grouped path, min of
+PE_RUNS calls.  Prints one
+line per variant with the card's name and power limit, then one JSON
+object.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -161,6 +166,7 @@ import json
 import shutil
 import subprocess
 import sys
+import types
 from unittest import mock
 
 import torch
@@ -171,6 +177,7 @@ from .models.ans import AnsFold, AnsInt, _stage
 from .ops import bytesplit, decode, encode, lane_codec, place, tables
 
 RUNS = 5
+PE_RUNS = 20  # the prepared encode is partly host time: more calls
 DEVICE = "cuda"
 LANES = 4096
 # earlier forms of K1, K2, K7, K8 and K9
@@ -923,6 +930,10 @@ EARLIER_VB_DEC_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_int64] + [
 EARLIER_SVB_DEC_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_int64,
                             ct.c_int64] + [ct.c_void_p] * 6
 
+# the earlier K1's C entry point: one stream, its length by value
+EARLIER_SCAN_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int64,
+                         ct.c_int, ct.c_int, ct.c_int] + [ct.c_void_p] * 4
+
 # the earlier K2's C entry point: round_base in, one error flag out
 EARLIER_PLACE_ARGTYPES = [
     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int, ct.c_int,
@@ -1101,25 +1112,60 @@ class LaneCell:
 
     def __init__(self, label: str, values):
         self.label = label
-        mapped, k, low, _, ffreqs, raw = AnsFold(
-            2, device=DEVICE)._enc_inputs(values)
+        # (six items in an older tree: no header yet)
+        codec = AnsFold(2, device=DEVICE)
+        mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)[:6]
         self.n = int(mapped.shape[0])
         self.T = lane_codec.lane_steps(self.n, LANES)
         self.enc, (self.mapped, self.nb, self.excw) = _stage(
             mapped, k, low, self.n, ffreqs, raw, LANES)
         self.packed, self.states = self.scan()
         self.stream = _place(self.packed, self.nb, self.excw, self.n)
+        table = codec._table(pfreqs)
+        self.dec = tables.to_device(table, DEVICE)
+        self.direct = tables.to_device(tables.materialize_slots(table),
+                                       DEVICE)
 
     def scan(self):
         return encode.encode_scan(self.mapped, self.n, self.enc)
 
+    def decode(self, kernel: str):
+        """K4 (the rule's engine) or K3 on the stream, as the prepared
+        decoder calls them."""
+        if kernel == "K4":
+            return decode.decode_direct(self.stream, self.states,
+                                        self.direct, self.n, self.T)
+        return decode.decode_search(self.stream, self.states, self.dec,
+                                    self.n, self.T)
 
-def time_k1(cell: LaneCell, what: str) -> float:
-    packed, states = cell.scan()
+
+def earlier_scan(cell: LaneCell):
+    """The earlier K1 (built from earlier_csrc/encode_scan.cu inside its
+    Variant) through its own C entry point: one stream, its length by
+    value; (packed, states) as the scan as it is gives them."""
+    T, S = cell.mapped.shape
+    dev = torch.device(DEVICE)
+    packed = torch.empty((T, S), dtype=torch.int32, device=dev)
+    states = torch.empty(S, dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = build.function("encode_scan", EARLIER_SCAN_ARGTYPES)
+    build.check("encode_scan", fn(
+        build.ptr(cell.mapped), build.ptr(cell.enc.words),
+        cell.enc.words.shape[0], cell.n, T, S, cell.enc.log2m,
+        build.ptr(packed), build.ptr(states), build.ptr(err),
+        build.current_stream(dev)))
+    if err.item():
+        raise RuntimeError("the earlier K1 flagged a symbol")
+    return packed, states
+
+
+def time_k1(cell: LaneCell, what: str, scan=None) -> float:
+    scan = scan or cell.scan
+    packed, states = scan()
     if not (torch.equal(packed, cell.packed)
             and torch.equal(states, cell.states)):
         raise RuntimeError(f"{cell.label}: K1 variant {what} scans wrongly")
-    return cuda_ms(cell.scan)
+    return cuda_ms(scan)
 
 
 def time_place(cell, what: str, fn, launch=None) -> float:
@@ -1140,10 +1186,12 @@ def k2_launch(cell):
     stream = torch.empty(total, dtype=torch.uint8, device=DEVICE)
     scratch = torch.zeros(2 * (T + 1), dtype=torch.int64, device=DEVICE)
     status = scratch[T + 1:]
+    n = lane_codec.batch_of_one(torch.device(DEVICE), cell.n)
     fn = build.function("place", _ARGTYPES)
     args = (build.ptr(cell.packed), build.ptr(cell.nb), build.ptr(cell.excw),
-            cell.n, T, S, build.ptr(stream), total, build.ptr(scratch),
-            build.ptr(status), build.current_stream(torch.device(DEVICE)))
+            build.ptr(n), 1, T, S, build.ptr(stream), total,
+            build.ptr(scratch), build.ptr(status),
+            build.current_stream(torch.device(DEVICE)))
 
     def go():
         status.zero_()
@@ -1167,10 +1215,12 @@ def k2_timeline(cell, emit) -> None:
                                  device=DEVICE)
             scratch = torch.zeros(2 * (T + 1), dtype=torch.int64,
                                   device=DEVICE)
+            n = lane_codec.batch_of_one(torch.device(DEVICE), cell.n)
             build.check("place", fn(
                 build.ptr(cell.packed), build.ptr(cell.nb),
-                build.ptr(cell.excw), cell.n, T, S, build.ptr(stream), total,
-                build.ptr(scratch), build.ptr(scratch[T + 1:]),
+                build.ptr(cell.excw), build.ptr(n), 1, T, S,
+                build.ptr(stream), total, build.ptr(scratch),
+                build.ptr(scratch[T + 1:]),
                 build.current_stream(torch.device(DEVICE))))
             torch.cuda.synchronize()
         if not torch.equal(stream[:total], cell.stream):
@@ -1595,7 +1645,8 @@ class Cell:
 
     def __init__(self, label: str, codec, values):
         self.label = label
-        mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
+        mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(
+            values)[:6]
         self.n = int(mapped.shape[0])
         self.T = lane_codec.lane_steps(self.n, LANES)
         self.enc, (self.mapped, nb, excw) = _stage(
@@ -1657,7 +1708,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log2n = 20 if args.quick else 25
     lane = (LaneCell("ANSfold-2 on bench input", bench_input(1 << log2n, 42))
-            if kernels & {"K1", "K2"} else None)
+            if kernels & {"K1", "K2", "K3", "K4"} else None)
     cells = [
         Cell("ANSfold-7 on zipf20", AnsFold(7, device=DEVICE),
              zipf20_input(1 << log2n)),
@@ -1677,6 +1728,10 @@ def main(argv=None) -> int:
     if args.baseline:
         if "K1" in kernels:
             emit(lane, "K1", "as it is", cuda_ms(lane.scan))
+        for kernel in ("K3", "K4"):
+            if kernel in kernels:
+                emit(lane, kernel, "as it is",
+                     cuda_ms(lambda k=kernel: lane.decode(k)))
         for cell in [lane, *cells] if "K2" in kernels else []:
             emit(cell, "K2", "as it is", cuda_ms(lambda: _place(
                 cell.packed, cell.nb, cell.excw, cell.n)))
@@ -1695,10 +1750,23 @@ def main(argv=None) -> int:
         if "K9" in kernels:
             emit(byte, "K9", "as it is", cuda_ms(
                 lambda: bytesplit.vbyte_decode(byte.vb, byte.n)))
+        if "PE" in kernels:
+            from . import models
+            for label, name, x in (
+                    ("ANSfold-2 on bench input", "ANSfold-2",
+                     bench_input(1 << log2n, 42)),
+                    ("ANSfold-7 on zipf20", "ANSfold-7",
+                     zipf20_input(1 << log2n))):
+                pe = models.prepare_encoder(name, x, lanes=LANES,
+                                            device=DEVICE)
+                emit(types.SimpleNamespace(label=label, n=len(x)), "PE",
+                     "prepared encode", cuda_ms(pe, PE_RUNS))
+                del pe
     else:
         if "K1" in kernels:
             with Variant("k1_earlier", [], earlier=["encode_scan.cu"]):
-                emit(lane, "K1", "earlier", time_k1(lane, "earlier"))
+                emit(lane, "K1", "earlier", time_k1(
+                    lane, "earlier", lambda: earlier_scan(lane)))
             for step, patches in (("b4", FOUR_LOOKUP_WARPS),
                                   ("b2", [chain_warps(2)]),
                                   ("as it is", [])):

@@ -43,13 +43,22 @@
 // tables leave the ring no room the stream takes global loads (ring_bytes
 // = 0; the wrapper chooses both).  Every read is checked against the
 // stream length.
+//
+// A launch decodes a batch of D streams that share the frame (the sections
+// of a blocked container; one stream is the batch of one): one block a
+// stream, each loading the tables into its own shared memory, reading its
+// own byte range [stream_off[b], stream_off[b + 1]) of the concatenated
+// payloads, its states and length n[b], and writing its (T, S) outputs.  A
+// stream with n = 0 reads and writes nothing.  The lockstep is per stream,
+// so the blocks run side by side, one an SM.
 #include "lockstep.cuh"
 
 namespace {
 
 template <int LPT, int NES, bool RING, bool SMEM_TABLE>
 __global__ void __launch_bounds__(1024)
-decode_grouped_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
+decode_grouped_kernel(const uint8_t* __restrict__ stream,
+                      const int64_t* __restrict__ stream_off,
                       const int32_t* __restrict__ states,
                       const int4* __restrict__ groups_g,
                       const int32_t* __restrict__ bases_g,
@@ -57,13 +66,22 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
                       const int32_t* __restrict__ table_g,
                       const uint8_t* __restrict__ nb_g, int NG, int levels,
                       int shift, int sigma, int log2m, int NR, int NE,
-                      int64_t n, int T, int S, uint32_t ring_bytes,
+                      const int64_t* __restrict__ n_of, int T, int S,
+                      uint32_t ring_bytes,
                       int32_t* __restrict__ out, int32_t* __restrict__ err) {
   constexpr int NW = lockstep::Rounds<NES>::NW;
   // The lane loops unroll fully up to 8 lanes a thread (lockstep.cuh).
   constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
   extern __shared__ int4 smem[];
   __shared__ uint32_t scratch[2][NW][32];
+  // stream blockIdx.x of the batch: its bytes, states, length and outputs
+  const int64_t n = n_of[blockIdx.x];
+  if (n <= 0) return;  // an empty stream reads and writes nothing
+  const int64_t stream_len =
+      stream_off[blockIdx.x + 1] - stream_off[blockIdx.x];
+  stream += stream_off[blockIdx.x];
+  states += static_cast<int64_t>(blockIdx.x) * S;
+  out += static_cast<int64_t>(blockIdx.x) * T * S;
   const uint32_t M = 1u << log2m;
   const bool has_table = table_g != nullptr;
   const int nbounds = NG + (1 << levels);  // boundaries a probe may touch
@@ -166,7 +184,8 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
 
 struct Args {
   const void *stream, *states, *groups, *bases, *buckets, *table, *nb;
-  int64_t stream_len, n;
+  const void *stream_off, *n;
+  int D;
   int NG, levels, shift, sigma, log2m, NR, NE, T, S;
   uint32_t ring_bytes;
   bool smem_table;
@@ -197,16 +216,18 @@ cudaError_t launch(const Args& a) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, lane::block_threads(a.S), smem, a.cs>>>(
-      static_cast<const uint8_t*>(a.stream), a.stream_len,
+  kernel<<<a.D, lane::block_threads(a.S), smem, a.cs>>>(
+      static_cast<const uint8_t*>(a.stream),
+      static_cast<const int64_t*>(a.stream_off),
       static_cast<const int32_t*>(a.states),
       static_cast<const int4*>(a.groups),
       static_cast<const int32_t*>(a.bases),
       static_cast<const uint16_t*>(a.buckets),
       static_cast<const int32_t*>(a.table),
       static_cast<const uint8_t*>(a.nb), a.NG, a.levels, a.shift, a.sigma,
-      a.log2m, a.NR, a.NE, a.n, a.T, a.S, a.ring_bytes,
-      static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
+      a.log2m, a.NR, a.NE, static_cast<const int64_t*>(a.n), a.T, a.S,
+      a.ring_bytes, static_cast<int32_t*>(a.out),
+      static_cast<int32_t*>(a.err));
   return cudaGetLastError();
 }
 
@@ -226,39 +247,40 @@ cudaError_t launch_lpt(const Args& a) {
 
 }  // namespace
 
-// stream: (stream_len,) u8 at any address; states: (S,) i32; groups: (NG, 4)
-// i32 rows [f, magic, slot0, rank0]; bases: at least NG i32, the groups'
-// first slots in order; buckets: ((2^log2m - 1 >> shift) + 1,) u16, the
-// group holding each bucket's first slot, from which at most 2^levels - 1
-// further groups begin inside the bucket; table: (sigma,) i32 per-rank value
-// or high part, or null (the rank is the value); nb: (sigma,) u8 exception
-// bytes per rank, read when NE > 0; out: (T, S) i32; err: one i32, set to 1
-// when a read passes the end of the stream.  ring_bytes: 0 for the instance
-// on global loads, else the size of the shared-memory ring, a power of two
-// >= 2 * S * (NR + NE) + 16.  smem_table: whether the per-rank table and nb
-// are staged in shared memory.  stream_len < 2^31.  Returns the launch's
-// cudaError_t.
-extern "C" int decode_grouped(const void* stream, int64_t stream_len,
+// stream: the D streams' bytes, stream b at [stream_off[b], stream_off[b +
+// 1]) (stream_off: (D + 1,) i64 device array; each stream at any address and
+// shorter than 2^31 bytes); states: (D, S) i32; groups: (NG, 4) i32 rows [f,
+// magic, slot0, rank0]; bases: at least NG i32, the groups' first slots in
+// order; buckets: ((2^log2m - 1 >> shift) + 1,) u16, the group holding each
+// bucket's first slot, from which at most 2^levels - 1 further groups begin
+// inside the bucket; table: (sigma,) i32 per-rank value or high part, or
+// null (the rank is the value); nb: (sigma,) u8 exception bytes per rank,
+// read when NE > 0; n: (D,) i64 device array, the positions of each stream;
+// out: (D, T, S) i32; err: one i32, set to 1 when a read passes the end of
+// its stream.  ring_bytes: 0 for the instance on global loads, else the size
+// of the shared-memory ring, a power of two >= 2 * S * (NR + NE) + 16.
+// smem_table: whether the per-rank table and nb are staged in shared memory.
+// Returns the launch's cudaError_t.
+extern "C" int decode_grouped(const void* stream, const void* stream_off,
                               const void* states, const void* groups,
                               const void* bases, const void* buckets,
                               const void* table, const void* nb, int NG,
                               int levels, int shift, int sigma, int log2m,
-                              int NR, int NE, int64_t n, int T, int S,
-                              int ring_bytes, int smem_table, void* out,
-                              void* err, void* cuda_stream) {
-  if (T == 0) return 0;
+                              int NR, int NE, const void* n, int D, int T,
+                              int S, int ring_bytes, int smem_table,
+                              void* out, void* err, void* cuda_stream) {
+  if (T == 0 || D == 0) return 0;
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
-      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
-      stream_len < 0 || stream_len >= (int64_t(1) << 31) ||
+      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) || D < 0 ||
       (S > 1024 && S % 1024) || NG < 1 || levels < 0 || levels > 12 ||
       shift < 0 || shift > log2m || (NE > 0 && nb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
   const Args a{stream, states, groups, bases, buckets, table, nb,
-               stream_len, n, NG, levels, shift, sigma, log2m, NR, NE, T, S,
-               static_cast<uint32_t>(ring_bytes), smem_table != 0, out, err,
-               static_cast<cudaStream_t>(cuda_stream)};
+               stream_off, n, D, NG, levels, shift, sigma, log2m, NR, NE, T,
+               S, static_cast<uint32_t>(ring_bytes), smem_table != 0, out,
+               err, static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
     case 1: e = launch_lpt<1>(a); break;

@@ -41,18 +41,28 @@
 // global loads, with an L2 prefetch ahead of the cursor (ring_bytes = 0;
 // the wrapper chooses).  Every read is checked against the stream length:
 // a corrupt blob sets the error flag instead of reading out of bounds.
+//
+// A launch decodes a batch of D streams that share the frame (the sections
+// of a blocked container; one stream is the batch of one): one block a
+// stream, each loading the tables into its own shared memory, reading its
+// own byte range [stream_off[b], stream_off[b + 1]) of the concatenated
+// payloads, its states and length n[b], and writing its (T, S) outputs.  A
+// stream with n = 0 reads and writes nothing.  The lockstep is per stream,
+// so the blocks run side by side, one an SM.
 #include "lockstep.cuh"
 
 namespace {
 
 template <int LPT, int NES, bool RING>
 __global__ void __launch_bounds__(1024)
-decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
+decode_search_kernel(const uint8_t* __restrict__ stream,
+                     const int64_t* __restrict__ stream_off,
                      const int32_t* __restrict__ states,
                      const int32_t* __restrict__ bases_g,
                      const int32_t* __restrict__ high_g,
                      const int32_t* __restrict__ nb_g, int depth, int sigma,
-                     int log2m, int NR, int NE, int64_t n, int T, int S,
+                     int log2m, int NR, int NE,
+                     const int64_t* __restrict__ n_of, int T, int S,
                      uint32_t ring_bytes, int32_t* __restrict__ out,
                      int32_t* __restrict__ err) {
   constexpr int NW = lockstep::Rounds<NES>::NW;
@@ -60,6 +70,14 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
   constexpr int LANE_UNROLL = LPT <= 8 ? LPT : 1;
   extern __shared__ int4 smem[];
   __shared__ uint32_t scratch[2][NW][32];
+  // stream blockIdx.x of the batch: its bytes, states, length and outputs
+  const int64_t n = n_of[blockIdx.x];
+  if (n <= 0) return;  // an empty stream reads and writes nothing
+  const int64_t stream_len =
+      stream_off[blockIdx.x + 1] - stream_off[blockIdx.x];
+  stream += stream_off[blockIdx.x];
+  states += static_cast<int64_t>(blockIdx.x) * S;
+  out += static_cast<int64_t>(blockIdx.x) * T * S;
   const int P = 1 << depth;
   uint8_t* ring = reinterpret_cast<uint8_t*>(smem);  // ring_bytes
   int32_t* bases = reinterpret_cast<int32_t*>(ring + ring_bytes);  // P + 1
@@ -139,7 +157,8 @@ decode_search_kernel(const uint8_t* __restrict__ stream, int64_t stream_len,
 
 struct Args {
   const void *stream, *states, *bases, *high, *nb;
-  int64_t stream_len, n;
+  const void *stream_off, *n;
+  int D;
   int depth, sigma, log2m, NR, NE, T, S;
   uint32_t ring_bytes;
   void *out, *err;
@@ -158,12 +177,14 @@ cudaError_t launch(const Args& a) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<1, lane::block_threads(a.S), smem, a.cs>>>(
-      static_cast<const uint8_t*>(a.stream), a.stream_len,
+  kernel<<<a.D, lane::block_threads(a.S), smem, a.cs>>>(
+      static_cast<const uint8_t*>(a.stream),
+      static_cast<const int64_t*>(a.stream_off),
       static_cast<const int32_t*>(a.states),
       static_cast<const int32_t*>(a.bases),
       static_cast<const int32_t*>(a.high), static_cast<const int32_t*>(a.nb),
-      a.depth, a.sigma, a.log2m, a.NR, a.NE, a.n, a.T, a.S, a.ring_bytes,
+      a.depth, a.sigma, a.log2m, a.NR, a.NE,
+      static_cast<const int64_t*>(a.n), a.T, a.S, a.ring_bytes,
       static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
   return cudaGetLastError();
 }
@@ -177,28 +198,30 @@ cudaError_t launch_lpt(const Args& a) {
 
 }  // namespace
 
-// stream: (stream_len,) u8 at any address; states: (S,) i32; bases:
-// (2^depth + 1,) i32; high/nb: (sigma,) i32; out: (T, S) i32; err: one i32,
-// set to 1 when a read passes the end of the stream.  ring_bytes: 0 for
-// the instance on global loads, else the size of the shared-memory ring, a
-// power of two >= 2 * S * (NR + NE) + 16.  stream_len < 2^31.  Returns the
-// launch's cudaError_t.
-extern "C" int decode_search(const void* stream, int64_t stream_len,
+// stream: the D streams' bytes, stream b at [stream_off[b], stream_off[b +
+// 1]) (stream_off: (D + 1,) i64 device array; each stream at any address and
+// shorter than 2^31 bytes); states: (D, S) i32; bases: (2^depth + 1,) i32;
+// high/nb: (sigma,) i32; n: (D,) i64 device array, the positions of each
+// stream; out: (D, T, S) i32; err: one i32, set to 1 when a read passes the
+// end of its stream.  ring_bytes: 0 for the instance on global loads, else
+// the size of the shared-memory ring, a power of two >= 2 * S * (NR + NE) +
+// 16.  Returns the launch's cudaError_t.
+extern "C" int decode_search(const void* stream, const void* stream_off,
                              const void* states, const void* bases,
                              const void* high, const void* nb, int depth,
-                             int sigma, int log2m, int NR, int NE, int64_t n,
-                             int T, int S, int ring_bytes, void* out,
-                             void* err, void* cuda_stream) {
-  if (T == 0) return 0;
+                             int sigma, int log2m, int NR, int NE,
+                             const void* n, int D, int T, int S,
+                             int ring_bytes, void* out, void* err,
+                             void* cuda_stream) {
+  if (T == 0 || D == 0) return 0;
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
-      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) ||
-      stream_len < 0 || stream_len >= (int64_t(1) << 31) ||
+      (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) || D < 0 ||
       (S > 1024 && S % 1024))
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
-  const Args a{stream, states, bases, high, nb, stream_len, n, depth, sigma,
-               log2m, NR, NE, T, S, static_cast<uint32_t>(ring_bytes),
+  const Args a{stream, states, bases, high, nb, stream_off, n, D, depth,
+               sigma, log2m, NR, NE, T, S, static_cast<uint32_t>(ring_bytes),
                out, err, static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {

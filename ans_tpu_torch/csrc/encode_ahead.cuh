@@ -86,9 +86,10 @@ __device__ __forceinline__ void fill_tile(int at, int tile, int T, int S,
 // The chain of one lane (global index `lane`, `l` inside the block) over
 // the steps of one tile at smem[at ..], last first: one lane::encode_step a
 // step, its row loaded one step before it is needed.  Positions past n are
-// the scan's last steps (one at most when T = ceil(n / S)): such a pad
-// position emits no bytes and keeps the state, and they are dealt with
-// before the loop, which then has no branch on the chain.
+// the scan's last steps (one at most when T = ceil(n / S); more in a short
+// stream of a batch, whose T is that of its longest): such a pad position
+// emits no bytes and keeps the state, and they are dealt with before the
+// loop, which then has no branch on the chain.
 __device__ __forceinline__ void chain_tile(int at, int tile, int T, int S,
                                            int lane, int l, int64_t n,
                                            int log2m, uint32_t& st,

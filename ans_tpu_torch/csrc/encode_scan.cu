@@ -31,6 +31,11 @@
 // the symbol's global load; a larger, sparser table is read through __ldg.
 // Division keeps the TPU kernel's magic (an exact `__umulhi` sequence)
 // rather than the card's slow 32-bit divide.
+//
+// A launch scans a batch of D streams that share one table (the sections
+// of a blocked container; one stream is the batch of one): the grid is
+// (S / 32, D), and stream d's blocks read its symbols and its own length
+// n[d] and write its words and states.
 #include "encode_ahead.cuh"
 
 namespace {
@@ -81,10 +86,17 @@ struct Find {
 template <bool SMEM_TABLE>
 __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
                                    const int4* __restrict__ table, int sigma,
-                                   int64_t n, int T, int S, int log2m,
+                                   const int64_t* __restrict__ n_of, int T,
+                                   int S, int log2m,
                                    int32_t* __restrict__ packed,
                                    int32_t* __restrict__ states,
                                    int32_t* __restrict__ err) {
+  // stream blockIdx.y of the batch: its symbols, length, words and states
+  const int64_t at = static_cast<int64_t>(blockIdx.y) * T * S;
+  syms += at;
+  packed += at;
+  states += static_cast<int64_t>(blockIdx.y) * S;
+  const int64_t n = n_of[blockIdx.y];
   const int table_at = ahead::TILE_ROWS;
   if (SMEM_TABLE) {
     for (int i = threadIdx.x; i < sigma; i += blockDim.x)
@@ -97,10 +109,10 @@ __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
 }
 
 template <bool SMEM_TABLE>
-int launch(const void* syms, const void* table, int sigma, int64_t n, int T,
-           int S, int log2m, void* packed, void* states, void* err,
-           cudaStream_t stream) {
-  const int blocks = (S + ahead::L - 1) / ahead::L;
+int launch(const void* syms, const void* table, int sigma, const void* n,
+           int D, int T, int S, int log2m, void* packed, void* states,
+           void* err, cudaStream_t stream) {
+  const dim3 blocks((S + ahead::L - 1) / ahead::L, D);
   const size_t smem =
       16 * (size_t(ahead::TILE_ROWS) + (SMEM_TABLE ? size_t(sigma) : 0));
   if (smem > 48 * 1024) {
@@ -111,24 +123,28 @@ int launch(const void* syms, const void* table, int sigma, int64_t n, int T,
   }
   encode_scan_kernel<SMEM_TABLE><<<blocks, ahead::THREADS, smem, stream>>>(
       static_cast<const int32_t*>(syms), static_cast<const int4*>(table),
-      sigma, n, T, S, log2m, static_cast<int32_t*>(packed),
+      sigma, static_cast<const int64_t*>(n), T, S, log2m,
+      static_cast<int32_t*>(packed),
       static_cast<int32_t*>(states), static_cast<int32_t*>(err));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// syms: (T, S) i32; table: (sigma, 4) i32 rows [freq, base, magic, 0];
-// packed: (T, S) i32 out; states: (S,) i32 out; err: one i32, set to 1
-// when a symbol lies outside the table.  Returns the launch's cudaError_t.
+// syms: (D, T, S) i32; table: (sigma, 4) i32 rows [freq, base, magic, 0];
+// n: (D,) i64 device array, the positions of each stream; packed: (D, T, S)
+// i32 out; states: (D, S) i32 out; err: one i32, set to 1 when a symbol lies
+// outside the table.  D <= 65535.  Returns the launch's cudaError_t.
 extern "C" int encode_scan(const void* syms, const void* table, int sigma,
-                           int64_t n, int T, int S, int log2m, void* packed,
-                           void* states, void* err, void* stream) {
-  if (S == 0) return 0;
+                           const void* n, int D, int T, int S, int log2m,
+                           void* packed, void* states, void* err,
+                           void* stream) {
+  if (S == 0 || D == 0) return 0;
+  if (D < 0 || D > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return sigma <= SMEM_TABLE_ROWS
-             ? launch<true>(syms, table, sigma, n, T, S, log2m, packed,
+             ? launch<true>(syms, table, sigma, n, D, T, S, log2m, packed,
                             states, err, s)
-             : launch<false>(syms, table, sigma, n, T, S, log2m, packed,
+             : launch<false>(syms, table, sigma, n, D, T, S, log2m, packed,
                              states, err, s);
 }

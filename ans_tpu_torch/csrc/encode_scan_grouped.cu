@@ -32,6 +32,10 @@
 // NG <= sqrt(2M); the sigma-sized rank_of is read from global memory
 // through __ldg.  The tables stay NG-sized: no per-rank freq/base table is
 // built.
+//
+// A launch scans a batch of D streams that share the tables, as K1 does:
+// the grid is (S / 32, D), stream d's blocks reading its inputs and length
+// n[d] and writing its words and states.
 #include "encode_ahead.cuh"
 
 namespace {
@@ -115,9 +119,16 @@ struct Find {
 __global__ void encode_scan_grouped_kernel(
     const int32_t* __restrict__ syms, const int4* __restrict__ groups_g,
     const int32_t* __restrict__ bases_g, const int32_t* __restrict__ rank_of,
-    int64_t n_rank_of, int NG, int depth, int sigma, int64_t n, int T, int S,
-    int log2m, int32_t* __restrict__ packed, int32_t* __restrict__ states,
+    int64_t n_rank_of, int NG, int depth, int sigma,
+    const int64_t* __restrict__ n_of, int T, int S, int log2m,
+    int32_t* __restrict__ packed, int32_t* __restrict__ states,
     int32_t* __restrict__ err) {
+  // stream blockIdx.y of the batch: its inputs, length, words and states
+  const int64_t at = static_cast<int64_t>(blockIdx.y) * T * S;
+  syms += at;
+  packed += at;
+  states += static_cast<int64_t>(blockIdx.y) * S;
+  const int64_t n = n_of[blockIdx.y];
   const int groups_at = ahead::TILE_ROWS;
   int4* groups = ahead::smem + groups_at;
   int32_t* bases = reinterpret_cast<int32_t*>(groups + NG);
@@ -132,20 +143,22 @@ __global__ void encode_scan_grouped_kernel(
 
 }  // namespace
 
-// syms: (T, S) i32 ranks, or symbol ids when rank_of (n_rank_of i32
+// syms: (D, T, S) i32 ranks, or symbol ids when rank_of (n_rank_of i32
 // entries) is not null; groups: (NG, 4) i32 rows [f, magic, slot0, rank0];
-// bases: (2^depth + 1,) i32 group rank boundaries padded with sigma;
-// packed: (T, S) i32 out; states: (S,) i32 out; err: one i32, set to 1 when
-// a symbol or a rank lies outside the tables.  Returns the cudaError_t.
+// bases: (2^depth + 1,) i32 group rank boundaries padded with sigma; n: (D,)
+// i64 device array, the positions of each stream; packed: (D, T, S) i32
+// out; states: (D, S) i32 out; err: one i32, set to 1 when a symbol or a
+// rank lies outside the tables.  D <= 65535.  Returns the cudaError_t.
 extern "C" int encode_scan_grouped(const void* syms, const void* groups,
                                    const void* bases, const void* rank_of,
                                    int64_t n_rank_of, int NG, int depth,
-                                   int sigma, int64_t n, int T, int S,
-                                   int log2m, void* packed, void* states,
-                                   void* err, void* stream) {
-  if (S == 0) return 0;
+                                   int sigma, const void* n, int D, int T,
+                                   int S, int log2m, void* packed,
+                                   void* states, void* err, void* stream) {
+  if (S == 0 || D == 0) return 0;
+  if (D < 0 || D > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = ahead::THREADS;
-  const int blocks = (S + ahead::L - 1) / ahead::L;
+  const dim3 blocks((S + ahead::L - 1) / ahead::L, D);
   const size_t smem =
       16 * (size_t(ahead::TILE_ROWS) + NG) +
       sizeof(int32_t) * ((size_t(1) << depth) + 1);
@@ -159,8 +172,9 @@ extern "C" int encode_scan_grouped(const void* syms, const void* groups,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(syms), static_cast<const int4*>(groups),
       static_cast<const int32_t*>(bases),
-      static_cast<const int32_t*>(rank_of), n_rank_of, NG, depth, sigma, n,
-      T, S, log2m, static_cast<int32_t*>(packed),
-      static_cast<int32_t*>(states), static_cast<int32_t*>(err));
+      static_cast<const int32_t*>(rank_of), n_rank_of, NG, depth, sigma,
+      static_cast<const int64_t*>(n), T, S, log2m,
+      static_cast<int32_t*>(packed), static_cast<int32_t*>(states),
+      static_cast<int32_t*>(err));
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,17 @@
 // routing network, its section cutting and its VMEM batch sizing are not
 // carried over: the stream is written flat (sections are contiguous
 // step-aligned slices of it).
+//
+// A launch places a batch of D streams (the sections of a blocked container;
+// one stream is the batch of one) as one chain: the tickets run over the
+// (stream, chunk) pairs stream-major, so stream d's first chunk looks back
+// into stream d - 1's last, and the D streams come out concatenated in one
+// buffer, their step offsets and lengths global positions in it (what the
+// batched decode reads back; the container's writer slices it).  Forward
+// progress holds as for one stream: a chunk's predecessors hold lower
+// tickets.  One chain, and not a status region and ticket a stream, keeps
+// lookback.cuh as it is: a stream's start is the chain's prefix at its
+// first chunk, and no stream waits for a second launch to learn it.
 #include "common.cuh"
 #include "lookback.cuh"
 
@@ -147,16 +158,26 @@ template <int LPT>
 __global__ void __launch_bounds__(THREADS)
     place_kernel(const int32_t* __restrict__ packed,
                  const int32_t* __restrict__ nb,
-                 const int32_t* __restrict__ excw, int64_t n, int T, int S,
-                 int TPS, int G, bool vec, uint8_t* __restrict__ stream,
-                 int64_t cap, int64_t* __restrict__ offsets,
-                 uint64_t* status, unsigned int* ticket) {
+                 const int32_t* __restrict__ excw,
+                 const int64_t* __restrict__ n_of, int T, int S, int TPS,
+                 int G, int64_t chunks_a_stream, bool vec,
+                 uint8_t* __restrict__ stream, int64_t cap,
+                 int64_t* __restrict__ offsets, uint64_t* status,
+                 unsigned int* ticket) {
   extern __shared__ uint32_t staged[];  // the chunk's bytes, then 16 spare
   __shared__ lane::ScanScratch scratch;
   __shared__ uint64_t excl_s;
   const int64_t chunk = lookback::take_ticket(ticket);
+  // the chunk's stream d (its inputs, length and step offsets) and its
+  // place among that stream's chunks
+  const int64_t d = chunk / chunks_a_stream;
+  const int64_t first = d * T * S;  // the stream's first position
+  packed += first;
+  nb += first;
+  excw += first;
+  const int64_t n = n_of[d];
   const int g = threadIdx.x / TPS;
-  const int64_t t = chunk * G + g;
+  const int64_t t = (chunk - d * chunks_a_stream) * G + g;
   const int l0 = (threadIdx.x % TPS) * LPT;
   const int64_t row = t * S;
 
@@ -206,8 +227,11 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) excl_s = ex;
   __syncthreads();
   const int64_t p0 = static_cast<int64_t>(excl_s);
-  if (t < T && threadIdx.x % TPS == 0) offsets[t] = p0 + before;
-  if (t == T - 1 && threadIdx.x % TPS == 0) offsets[T] = p0 + agg;
+  // step t of stream d at offsets[t][d] (the streams' ends, row T, lie
+  // side by side)
+  const int64_t D = gridDim.x / chunks_a_stream;
+  if (t < T && threadIdx.x % TPS == 0) offsets[t * D + d] = p0 + before;
+  if (t == T - 1 && threadIdx.x % TPS == 0) offsets[T * D + d] = p0 + agg;
 
   // the run [p0, p1): byte stores up to the first 16-byte boundary and
   // after the last one, 16-byte stores between (a stream shorter than
@@ -238,12 +262,15 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int LPT>
-int launch(const void* packed, const void* nb, const void* excw, int64_t n,
-           int T, int S, void* stream, int64_t cap, void* offsets,
-           void* status, cudaStream_t cuda_stream) {
+int launch(const void* packed, const void* nb, const void* excw,
+           const void* n, int D, int T, int S, void* stream, int64_t cap,
+           void* offsets, void* status, cudaStream_t cuda_stream) {
   const int TPS = threads_per_step(S);
   const int G = max(1, min(STEP_BLOCK / TPS, T));
-  const int64_t chunks = (static_cast<int64_t>(T) + G - 1) / G;
+  const int64_t chunks_a_stream = (static_cast<int64_t>(T) + G - 1) / G;
+  const int64_t chunks = D * chunks_a_stream;
+  if (chunks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = size_t(lane::MAX_ROUNDS) * S * G + 16;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -260,33 +287,38 @@ int launch(const void* packed, const void* nb, const void* excw, int64_t n,
   place_kernel<LPT><<<static_cast<unsigned>(chunks), TPS * G, smem,
                       cuda_stream>>>(
       static_cast<const int32_t*>(packed), static_cast<const int32_t*>(nb),
-      static_cast<const int32_t*>(excw), n, T, S, TPS, G, vec,
-      static_cast<uint8_t*>(stream), cap, static_cast<int64_t*>(offsets),
-      st, reinterpret_cast<unsigned int*>(st + chunks));
+      static_cast<const int32_t*>(excw), static_cast<const int64_t*>(n), T,
+      S, TPS, G, chunks_a_stream, vec, static_cast<uint8_t*>(stream), cap,
+      static_cast<int64_t*>(offsets), st,
+      reinterpret_cast<unsigned int*>(st + chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// packed/nb/excw: (T, S) i32; stream: (cap,) u8 out; offsets: (T + 1,) i64
-// out, the stream offset of each step, then the stream's length; status:
-// T + 1 u64, zero (a status word for each chunk, then the ticket).  Bytes
-// at or past `cap` are not written.  S must be at most 16384 (6 S bytes of
-// shared memory a block).  Returns the launch's cudaError_t.
+// packed/nb/excw: (D, T, S) i32; n: (D,) i64 device array, the positions
+// of each stream; stream: (cap,) u8 out, the D streams one after the other;
+// offsets: (T + 1, D) i64 out, the offset in `stream` of each step of each
+// stream, then (row T) each stream's end; status: D * T + 1 u64, zero (a status
+// word for each chunk, then the ticket).  Bytes at or past `cap` are not
+// written.  S must be at most 16384 (6 S bytes of shared memory a block).
+// Returns the launch's cudaError_t.
 extern "C" int place(const void* packed, const void* nb, const void* excw,
-                     int64_t n, int T, int S, void* stream, int64_t cap,
-                     void* offsets, void* status, void* cuda_stream) {
-  if (T == 0) return 0;
+                     const void* n, int D, int T, int S, void* stream,
+                     int64_t cap, void* offsets, void* status,
+                     void* cuda_stream) {
+  if (T == 0 || D == 0) return 0;
+  if (D < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tps = threads_per_step(S);
   const int lpt = (S + tps - 1) / tps;
-  int (*go)(const void*, const void*, const void*, int64_t, int, int, void*,
-            int64_t, void*, void*, cudaStream_t) = nullptr;
+  int (*go)(const void*, const void*, const void*, const void*, int, int,
+            int, void*, int64_t, void*, void*, cudaStream_t) = nullptr;
   if (lpt <= 1) go = launch<1>;
   else if (lpt <= 2) go = launch<2>;
   else if (lpt <= 4) go = launch<4>;
   else if (lpt <= 8) go = launch<8>;
   else if (lpt <= 16) go = launch<16>;
   if (go == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return go(packed, nb, excw, n, T, S, stream, cap, offsets, status,
+  return go(packed, nb, excw, n, D, T, S, stream, cap, offsets, status,
             static_cast<cudaStream_t>(cuda_stream));
 }

@@ -2,10 +2,11 @@
 
 Every codec exposes `encode(values) -> bytes` and
 `decode(buf, n) -> np.uint32 array` and runs on the device it was built
-for.  Ported so far: the lane-engine ANS, ANSsint-h and ANSfold-f methods
-and the byte path (vbyte, streamvbyte, vbyteANS, streamvbyteANS); any
-other name of ans_tpu's registry raises KeyError naming the ROADMAP item
-that will port it.
+for.  Ported so far: the lane-engine ANS, ANSsint-h, ANSfold-f, ANSmsb,
+ANSsmsb-h and ANSrfold-f methods and the byte path (vbyte, streamvbyte,
+vbyteANS, streamvbyteANS); any other name of ans_tpu's registry raises
+KeyError naming the ROADMAP item that will port it.  The blocked
+container is ans_tpu_torch.parallel.BlockCodec.
 """
 
 from __future__ import annotations
@@ -15,14 +16,21 @@ from . import bytes as _bytes
 from . import config
 from .engine import PreparedDecoder, PreparedEncoder  # noqa: F401
 
+# the H_approx values of ans_tpu's ANSsint-h and ANSsmsb-h names
+H_VALUES = (1, 5, 10, 20, 40, 80, 160, 320)
+
 # name -> codec factory (lanes, device)
 _LANE = {
     "ANS": lambda lanes, device: _lane.AnsInt(lanes=lanes, device=device),
     **{f"ANSfold-{f}": (lambda lanes, device, f=f: _lane.AnsFold(
         f, lanes=lanes, device=device)) for f in range(1, 9)},
     **{f"ANSsint-{h}": (lambda lanes, device, h=h: _lane.AnsInt(
-        h, lanes=lanes, device=device))
-       for h in (1, 5, 10, 20, 40, 80, 160, 320)},
+        h, lanes=lanes, device=device)) for h in H_VALUES},
+    "ANSmsb": lambda lanes, device: _lane.AnsMsb(lanes=lanes, device=device),
+    **{f"ANSsmsb-{h}": (lambda lanes, device, h=h: _lane.AnsMsb(
+        h, lanes=lanes, device=device)) for h in H_VALUES},
+    **{f"ANSrfold-{f}": (lambda lanes, device, f=f: _lane.AnsReorderFold(
+        f, lanes=lanes, device=device)) for f in range(1, 9)},
 }
 
 # the byte path: splitters (no lanes) and split + AnsByte composites
@@ -36,9 +44,6 @@ _BYTE = {
 
 # name prefix -> where it is queued (ROADMAP.md, queue 1)
 _UNPORTED = (
-    ("ANSrfold-", "queue 1 item 4 (AnsReorderFold)"),
-    ("ANSsmsb-", "queue 1 item 4 (AnsSmsb)"),
-    ("ANSmsb", "queue 1 item 4 (AnsMsb)"),
     ("pseudo_adaptive", "queue 1 item 9 (pseudo-adaptive)"),
     ("", "queue 1 item 8 (the host codecs: fse, huffzero and their "
          "composites, shuff, arith, optpfor, entropy)"),
@@ -86,10 +91,10 @@ def prepare_encoder(name: str, values, *, lanes: int = 4096, device):
     `get(name, device=device).encode(values)` for a codec with the same
     lane count."""
     codec = _lookup(name, _LANE)(lanes, device)
-    mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
+    mapped, k, low, pfreqs, ffreqs, raw, header = codec._enc_inputs(values)
     n = int(mapped.shape[0])
     S = config.validate_lanes(lanes) or config.default_lane_count(n)
     table, staged = _lane._stage(mapped, k, low, n, ffreqs, raw, S)
     pe = PreparedEncoder(*staged, n, table)
-    pe.prelude = codec._prelude(pfreqs)
+    pe.prelude = header + codec._prelude(pfreqs)
     return pe

@@ -93,15 +93,16 @@ class AnsByte(_LaneCodec):
         self.device = torch.device(device)
 
     def _enc_inputs(self, data: torch.Tensor):
-        """(mapped, k, low, nfreqs, nfreqs, raw=True) for a (n,) u8 device
-        tensor: the symbols are the bytes, with no exception bytes."""
+        """(mapped, k, low, nfreqs, nfreqs, raw=True, header=b"") for a
+        (n,) u8 device tensor: the symbols are the bytes, with no exception
+        bytes."""
         if data.numel() == 0:
             raise ValueError("cannot encode an empty sequence")
         mapped = data.to(torch.int32)
         hist = torch.bincount(mapped, minlength=256)
         nfreqs = byte_adjust_freqs(hist.cpu().numpy().astype(np.uint64))
         zero = torch.zeros_like(mapped)
-        return mapped, zero, zero, nfreqs, nfreqs, True
+        return mapped, zero, zero, nfreqs, nfreqs, True, b""
 
     def _prelude(self, pfreqs) -> bytes:
         return byte_prelude_serialize(pfreqs)

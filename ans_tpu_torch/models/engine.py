@@ -13,6 +13,13 @@ engines.  "search" (K3) and "grouped" (K5) each read their own layout;
 "direct" (K4) reads a per-slot table, under either layout, when that
 table fits the shared memory of one block.  The engine is not visible on
 the wire; `choose_decode_engine` picks it from the table.
+
+Every kernel takes a batch of D streams that share one model
+(`PreparedBatchEncoder`, `PreparedBatchDecoder`: the sections of a
+blocked container, parallel/block_runtime.py): one scan launch, one
+placement launch and one decode launch serve the whole batch.  The
+one-stream objects (`PreparedEncoder`, `PreparedDecoder`, `encode`,
+`decode`) are the batch of one.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import numpy as np
 import torch
 
 from ..ops import tables
-from ..ops.decode import decode_direct, decode_grouped, decode_search
-from ..ops.encode import encode_scan, encode_scan_grouped
-from ..ops.place import place
+from ..ops.decode import (decode_direct_batch, decode_grouped_batch,
+                          decode_search_batch)
+from ..ops.encode import encode_scan_batch, encode_scan_grouped_batch
+from ..ops.lane_codec import batch_of_one
+from ..ops.place import place_batch
 from . import framing
 
 ENGINES = ("search", "grouped", "direct")
@@ -59,20 +68,16 @@ def choose_decode_engine(table, S: int) -> str:
     return "direct" if "direct" in engines else engines[0]
 
 
-class PreparedDecoder:
-    """All decode inputs staged on `device`; call to run the decoder.
-    `engine` is "search" (K3), "grouped" (K5) or "direct" (K4); None
-    leaves the choice to choose_decode_engine.  An engine the table is
-    not eligible for raises ValueError."""
+class PreparedBatchDecoder:
+    """D streams of one frame staged on `device`, each of T steps of S
+    lanes: their payloads one after the other in one buffer, their states
+    (D, S) and lengths n_sec (D,); each call is one launch of the engine's
+    kernel for the whole batch.  `engine` is "search" (K3), "grouped" (K5)
+    or "direct" (K4); None leaves the choice to choose_decode_engine.  An
+    engine the table is not eligible for raises ValueError."""
 
-    def __init__(self, payload: np.ndarray, states: np.ndarray, table,
-                 n: int, *, S: int, T: int, sec_len, device,
-                 engine: str | None = None):
-        if int(np.sum(sec_len)) != len(payload):
-            raise ValueError("corrupt lane header: section lengths do not "
-                             "sum to the stream length")
-        self.n, self.S, self.T = n, S, T
-        self.device = torch.device(device)
+    def __init__(self, payloads, states: np.ndarray, table, n_sec, *, S: int,
+                 T: int, device, engine: str | None = None):
         if engine is None:
             engine = choose_decode_engine(table, S)
         elif engine not in eligible_engines(table):
@@ -81,25 +86,58 @@ class PreparedDecoder:
                 f"(eligible: {eligible_engines(table)}; \"direct\" needs "
                 f"{tables.direct_table_bytes(table)} bytes of tables in "
                 f"{tables.DIRECT_TABLE_BYTES})")
-        self.engine = engine
         if engine == "direct":
             table = tables.materialize_slots(table)
-        self._kernel = {"search": decode_search, "grouped": decode_grouped,
-                        "direct": decode_direct}[engine]
+        self.engine = engine
+        self._kernel = {"search": decode_search_batch,
+                        "grouped": decode_grouped_batch,
+                        "direct": decode_direct_batch}[engine]
+        self.n_sec = np.asarray(n_sec, dtype=np.int64)
+        self.S, self.T = S, T
+        self.device = torch.device(device)
         self.table = tables.to_device(table, self.device)
-        self.stream = torch.from_numpy(
-            np.array(payload, dtype=np.uint8)).to(self.device)
+        lens = [len(p) for p in payloads]
+        self.stream = torch.from_numpy(np.concatenate(
+            [np.asarray(p, dtype=np.uint8) for p in payloads])).to(
+            self.device)
+        off = np.concatenate(([0], np.cumsum(lens))).astype(np.int64)
+        self.stream_off = torch.from_numpy(off).to(self.device)
         self.states = torch.from_numpy(
             np.asarray(states, dtype=np.uint32).view(np.int32).copy()).to(
             self.device)
+        self.n = torch.from_numpy(self.n_sec).to(self.device)
+
+    def __call__(self) -> torch.Tensor:
+        """Run the decoder; returns the (D, T, S) i32 device tensor."""
+        return self._kernel(self.stream, self.stream_off, self.states,
+                            self.n, self.table, self.T)
+
+    def to_host(self, out: torch.Tensor) -> np.ndarray:
+        """The D streams' values, one after the other, as host u32."""
+        flat = out.reshape(len(self.n_sec), -1)
+        return torch.cat([flat[d, :n] for d, n in enumerate(
+            self.n_sec.tolist())]).cpu().numpy().view(np.uint32)
+
+
+class PreparedDecoder(PreparedBatchDecoder):
+    """One stream's decode inputs staged on `device`: PreparedBatchDecoder
+    on a batch of one (engine as there); call to run the decoder."""
+
+    def __init__(self, payload: np.ndarray, states: np.ndarray, table,
+                 n: int, *, S: int, T: int, sec_len, device,
+                 engine: str | None = None):
+        if int(np.sum(sec_len)) != len(payload):
+            raise ValueError("corrupt lane header: section lengths do not "
+                             "sum to the stream length")
+        super().__init__([payload], np.asarray(states)[None], table, [n],
+                         S=S, T=T, device=device, engine=engine)
 
     def __call__(self) -> torch.Tensor:
         """Run the decoder; returns the (T, S) i32 device tensor."""
-        return self._kernel(self.stream, self.states, self.table, self.n,
-                            self.T)
+        return super().__call__()[0]
 
     def to_host(self, out: torch.Tensor) -> np.ndarray:
-        return out.reshape(-1)[: self.n].cpu().numpy().view(np.uint32)
+        return super().to_host(out[None])
 
 
 def decode(payload: np.ndarray, states: np.ndarray, table, n: int, *,
@@ -111,18 +149,83 @@ def decode(payload: np.ndarray, states: np.ndarray, table, n: int, *,
     return prep.to_host(prep())
 
 
-def _section_plan(step_base: torch.Tensor, total: int, T: int):
+def _section_plan(step_base: np.ndarray, total: int, T: int):
     """(t_sec, sec_len): the section cut (wire format), chosen on the host
     from the placement's T step offsets."""
-    return framing.choose_sections(step_base.cpu().numpy(), total, T)
+    return framing.choose_sections(step_base, total, T)
 
 
-def _scan(syms: torch.Tensor, n: int, table):
-    """The encode scan a device table calls for: K6 under the grouped
-    layout (tables.GroupedEncDevice), K1 otherwise (tables.EncDevice)."""
+def _scan(syms: torch.Tensor, n: torch.Tensor, table):
+    """The encode scans of a (D, T, S) batch a device table calls for: K6
+    under the grouped layout (tables.GroupedEncDevice), K1 otherwise
+    (tables.EncDevice)."""
     if isinstance(table, tables.GroupedEncDevice):
-        return encode_scan_grouped(syms, n, table)
-    return encode_scan(syms, n, table)
+        return encode_scan_grouped_batch(syms, n, table)
+    return encode_scan_batch(syms, n, table)
+
+
+def encode_streams(mapped: torch.Tensor, nb: torch.Tensor,
+                   excw: torch.Tensor, n: torch.Tensor, table):
+    """One scan launch and one placement launch for D streams of one
+    model: (D, T, S) staged inputs and the (D,) i64 lengths n, all on one
+    device.  Returns (stream u8: the D streams one after the other,
+    offsets (D, T + 1) i64: each step's offset in it, then the stream's
+    end, ends (D,) host i64, states (D, S) i32)."""
+    packed, states = _scan(mapped, n, table)
+    stream, offsets, ends = place_batch(packed, nb, excw, n)
+    return stream, offsets, ends, states
+
+
+class PreparedBatchEncoder:
+    """Device-resident encode of D streams that share one model: the
+    (D, T, S) i32 staged inputs (symbols or ranks, exception-byte counts,
+    the values' three low bytes), the lengths n_sec (D,) and the scan's
+    device table, all on one device.  One priming scan and placement fix
+    each stream's step offsets (`offsets`, (D, T + 1) host i64 positions in
+    the batch's stream) and ends; each call then runs one scan launch and
+    one placement launch for the batch, the placement checking the ends."""
+
+    def __init__(self, mapped: torch.Tensor, nb: torch.Tensor,
+                 excw: torch.Tensor, n_sec, table):
+        self.n_sec = np.asarray(n_sec, dtype=np.int64)
+        self.D, self.T, self.S = mapped.shape
+        self.mapped, self.nb, self.excw = mapped, nb, excw
+        self.table = table
+        self.lengths = torch.from_numpy(self.n_sec).to(mapped.device)
+        _, offsets, self.ends, _ = encode_streams(mapped, nb, excw,
+                                                  self.lengths, table)
+        self.offsets = offsets.cpu().numpy()
+
+    def __call__(self):
+        """Returns (stream u8: the D streams one after the other, states
+        (D, S) i32), on the device."""
+        packed, states = _scan(self.mapped, self.lengths, self.table)
+        stream, _, _ = place_batch(packed, self.nb, self.excw, self.lengths,
+                                   self.ends)
+        return stream, states
+
+
+class PreparedEncoder(PreparedBatchEncoder):
+    """Device-resident encode of one stream: PreparedBatchEncoder on a
+    batch of one, with the section plan fixed by the priming run."""
+
+    def __init__(self, mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
+                 excw_ts: torch.Tensor, n: int, table):
+        super().__init__(mapped_ts[None], nb_ts[None], excw_ts[None], [n],
+                         table)
+        self.n = n
+        self.total = int(self.ends[0])
+        self.t_sec, self.sec_len = _section_plan(self.offsets[0, :-1],
+                                                 self.total, self.T)
+
+    def __call__(self):
+        """Returns (stream (total,) u8, states (S,) i32), on the device."""
+        stream, states = super().__call__()
+        return stream, states[0]
+
+    def to_bytes(self, stream: torch.Tensor, states: torch.Tensor) -> bytes:
+        return framing.pack(states.cpu().numpy().view(np.uint32),
+                            stream.cpu().numpy(), self.t_sec, self.sec_len)
 
 
 def encode(mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
@@ -131,38 +234,12 @@ def encode(mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
 
     mapped_ts/nb_ts/excw_ts: (T, S) i32 tensors (symbols or ranks,
     exception-byte counts, the values' three low bytes) and the scan's
-    device table, all on one device."""
-    packed, states = _scan(mapped_ts, n, table)
-    stream, step_base, total = place(packed, nb_ts, excw_ts, n)
-    t_sec, sec_len = _section_plan(step_base, total, packed.shape[0])
-    return framing.pack(states.cpu().numpy().view(np.uint32),
+    device table, all on one device: the batch of one."""
+    stream, offsets, ends, states = encode_streams(
+        mapped_ts[None], nb_ts[None], excw_ts[None],
+        batch_of_one(mapped_ts.device, n), table)
+    T = mapped_ts.shape[0]
+    t_sec, sec_len = _section_plan(offsets[0, :T].cpu().numpy(),
+                                   int(ends[0]), T)
+    return framing.pack(states[0].cpu().numpy().view(np.uint32),
                         stream.cpu().numpy(), t_sec, sec_len)
-
-
-class PreparedEncoder:
-    """Device-resident encode: inputs and the scan's device table staged
-    as for `encode`, and the section plan fixed by one priming scan and
-    placement; each call then runs the scan kernel and the placement
-    kernel, which checks the stream's length against the plan."""
-
-    def __init__(self, mapped_ts: torch.Tensor, nb_ts: torch.Tensor,
-                 excw_ts: torch.Tensor, n: int, table):
-        self.n = n
-        self.T, self.S = mapped_ts.shape
-        self.mapped_ts, self.nb_ts, self.excw_ts = mapped_ts, nb_ts, excw_ts
-        self.table = table
-        packed, _ = _scan(mapped_ts, n, table)
-        _, step_base, self.total = place(packed, nb_ts, excw_ts, n)
-        self.t_sec, self.sec_len = _section_plan(step_base, self.total,
-                                                 self.T)
-
-    def __call__(self):
-        """Returns (stream (total,) u8, states (S,) i32), on the device."""
-        packed, states = _scan(self.mapped_ts, self.n, self.table)
-        stream, _, _ = place(packed, self.nb_ts, self.excw_ts, self.n,
-                             self.total)
-        return stream, states
-
-    def to_bytes(self, stream: torch.Tensor, states: torch.Tensor) -> bytes:
-        return framing.pack(states.cpu().numpy().view(np.uint32),
-                            stream.cpu().numpy(), self.t_sec, self.sec_len)

@@ -15,7 +15,10 @@ After the method header + prelude comes:
 
 Sections are contiguous step-aligned slices of one stream, so the CUDA
 decoder reads the concatenated payload with one global cursor; t_sec and
-the section lengths are still chosen here because they are wire format.
+the section lengths are still chosen here because they are wire format
+(choose_sections for one stream; choose_sections_joint, one t_sec for the
+D streams of a blocked container, as ans_tpu's production engine cuts
+them).
 """
 
 from __future__ import annotations
@@ -60,6 +63,31 @@ def parse(buf: bytes, off: int):
     p += 4 * S
     stream = np.frombuffer(buf, dtype=np.uint8, count=stream_len, offset=p)
     return S, states, stream, t_sec, sec_len
+
+
+def choose_sections_joint(step_bases, totals, T: int,
+                          cap_bytes: int = 3 << 20, quantum: int = 32):
+    """One t_sec valid for EVERY device's stream (the block runtime
+    forces a uniform decode grid across the mesh).  Taking min() of
+    per-device choose_sections results is NOT safe: the halving chain
+    is not a divisor chain, so a smaller t_sec re-cuts a stream at
+    boundaries it never validated and a section straddling a validated
+    cut can reach ~2x cap_bytes (VMEM OOM at decode).  Returns
+    (t_sec, [per-device sec_len arrays])."""
+    if T == 0:
+        return quantum, [np.array([int(t)], dtype=np.int64)
+                         for t in totals]
+    t_sec = -(-T // quantum) * quantum
+    boundss = [np.append(sb, int(tot))
+               for sb, tot in zip(step_bases, totals)]
+    while True:
+        cuts = np.arange(0, T, t_sec)
+        ends = np.minimum(cuts + t_sec, T)
+        lens = [b[ends] - b[cuts] for b in boundss]
+        if (max(int(ln.max()) for ln in lens) <= cap_bytes
+                or t_sec <= quantum):
+            return t_sec, [ln.astype(np.int64) for ln in lens]
+        t_sec = max(quantum, (t_sec // 2 // quantum) * quantum)
 
 
 def choose_sections(step_base: np.ndarray, total: int, T: int,

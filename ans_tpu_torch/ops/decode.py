@@ -10,7 +10,14 @@ The three have two instances each (csrc/lockstep.cuh): "ring" stages
 the stream in a shared-memory ring ahead of the cursor, "global" reads it
 from device memory.  The wrapper takes "ring" wherever the ring fits the
 block's shared memory beside the tables (`choose_instance`);
-`instance_launches` counts each."""
+`instance_launches` counts each.
+
+Each kernel decodes a batch of D streams that share one frame in one
+launch, one block a stream (`decode_search_batch`, `decode_direct_batch`,
+`decode_grouped_batch`: the sections of a blocked container); the
+one-stream wrappers are the batch of one.  The model is shared, so the
+instance is one choice for the batch, and its error word is one for the
+batch: one sync a launch."""
 
 from __future__ import annotations
 
@@ -19,12 +26,14 @@ import ctypes as ct
 import torch
 
 from ..csrc import build
-from .lane_codec import (decode_direct_plain, decode_grouped_plain,
+from .lane_codec import (batch_of_one, decode_batch_plain,
+                         decode_direct_plain, decode_grouped_plain,
                          decode_search_plain)
 from .tables import (DIRECT_TABLE_BYTES, DirectDevice, GroupedDecDevice,
                      SearchDevice)
 
-# launches of the CUDA kernels K3, K4 and K5 (never counts a plain version)
+# launches of the CUDA kernels K3, K4 and K5, one a batch (never counts a
+# plain version)
 launches = 0
 direct_launches = 0
 grouped_launches = 0
@@ -41,7 +50,8 @@ MAX_LANES = 1 << 14
 
 INSTANCES = ("ring", "global")
 
-# the kernels keep 32-bit stream offsets
+# the kernels keep 32-bit stream offsets (the wrappers hold the whole
+# buffer of a batch to it)
 MAX_STREAM_BYTES = (1 << 31) - 1
 
 
@@ -74,10 +84,10 @@ def choose_instance(name: str, table_bytes: int, S: int, rounds: int,
     return "ring", ring
 
 
-_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
              ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_void_p, ct.c_void_p, ct.c_void_p]
+             ct.c_int, ct.c_int, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
+             ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_search(stream: torch.Tensor, states: torch.Tensor,
@@ -89,36 +99,55 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
     states.  Returns (T, S) i32 bit patterns of the u32 values (only the
     first n positions are meaningful).  Raises ValueError when a read
     would pass the end of the stream.  The stream may start at any byte
-    address.  CPU tensors run the plain version
-    (lane_codec.decode_search_plain); CUDA tensors launch the kernel,
-    in the instance choose_instance picks (`instance` forces one)."""
-    global launches
+    address.  decode_search_batch on a batch of one."""
     _check_inputs("decode_search", stream, states)
-    tensors = (stream, states, table.bases, table.high, table.nb)
+    return decode_search_batch(stream, *_one(stream, states, n), table, T,
+                               instance)[0]
+
+
+def decode_search_batch(stream: torch.Tensor, stream_off: torch.Tensor,
+                        states: torch.Tensor, n: torch.Tensor,
+                        table: SearchDevice, T: int,
+                        instance: str | None = None) -> torch.Tensor:
+    """Decode D streams of T lockstep steps that share one frame: stream
+    b is stream[stream_off[b]:stream_off[b + 1]] (stream_off (D + 1,) i64),
+    states (D, S) i32, n (D,) i64 its positions.  Returns (D, T, S) i32
+    (only the first n[b] positions of stream b are meaningful).  Raises
+    ValueError when a read would pass the end of its stream.  CPU tensors
+    run the plain version (lane_codec.decode_search_plain, stream by
+    stream); CUDA tensors launch the kernel once for the batch, in the
+    instance choose_instance picks (`instance` forces one)."""
+    global launches
+    _check_batch("decode_search", stream, stream_off, states, n)
+    tensors = (stream, stream_off, states, n, table.bases, table.high,
+               table.nb)
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_search_plain(stream, states, table, n, T)
+        return decode_batch_plain(decode_search_plain, stream, stream_off,
+                                  states, table, n, T)
     S = _lanes("decode_search", states, stream)
     which, ring = choose_instance(
         "decode_search", 4 * (table.bases.numel() + 2 * table.sigma), S,
         table.NR + table.NE, instance)
     dev = build.require_cuda("decode_search", *tensors)
-    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    D = states.shape[0]
+    out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_search", _ARGTYPES)
     build.check("decode_search", fn(
-        build.ptr(stream), stream.numel(), build.ptr(states),
+        build.ptr(stream), build.ptr(stream_off), build.ptr(states),
         build.ptr(table.bases), build.ptr(table.high), build.ptr(table.nb),
-        table.depth, table.sigma, table.log2m, table.NR, table.NE, n, T, S,
-        ring, build.ptr(out), build.ptr(err), build.current_stream(dev)))
+        table.depth, table.sigma, table.log2m, table.NR, table.NE,
+        build.ptr(n), D, T, S, ring, build.ptr(out), build.ptr(err),
+        build.current_stream(dev)))
     launches += 1
     instance_launches["decode_search"][which] += 1
     _raise_on(err)
     return out
 
 
-_DIRECT_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+_DIRECT_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                    ct.c_int64, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
                     ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
@@ -128,30 +157,43 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
     """Decode T lockstep steps through the per-slot table of the frame
     (either slot layout); arguments, result and errors as decode_search.
     Raises ValueError when the tables do not fit the shared memory of one
-    block.  CPU tensors run the plain version
-    (lane_codec.decode_direct_plain); CUDA tensors launch the kernel,
-    in the instance choose_instance picks (`instance` forces one)."""
-    global direct_launches
+    block.  decode_direct_batch on a batch of one."""
     _check_inputs("decode_direct", stream, states)
+    return decode_direct_batch(stream, *_one(stream, states, n), table, T,
+                               instance)[0]
+
+
+def decode_direct_batch(stream: torch.Tensor, stream_off: torch.Tensor,
+                        states: torch.Tensor, n: torch.Tensor,
+                        table: DirectDevice, T: int,
+                        instance: str | None = None) -> torch.Tensor:
+    """Decode D streams through the per-slot table of their frame;
+    arguments, result and errors as decode_search_batch.  CPU tensors run
+    the plain version (lane_codec.decode_direct_plain, stream by stream);
+    CUDA tensors launch the kernel once for the batch."""
+    global direct_launches
+    _check_batch("decode_direct", stream, stream_off, states, n)
     smem = 2 * table.frame_size + 16 * table.sigma
     if smem > DIRECT_TABLE_BYTES:
         raise ValueError(
             f"decode_direct: the frame's tables take {smem} bytes of "
             f"shared memory; a block has {DIRECT_TABLE_BYTES}")
-    tensors = (stream, states, table.slot_sym, table.rows)
+    tensors = (stream, stream_off, states, n, table.slot_sym, table.rows)
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_direct_plain(stream, states, table, n, T)
+        return decode_batch_plain(decode_direct_plain, stream, stream_off,
+                                  states, table, n, T)
     S = _lanes("decode_direct", states, stream)
     which, ring = choose_instance("decode_direct", smem, S,
                                   table.NR + table.NE, instance)
     dev = build.require_cuda("decode_direct", *tensors)
-    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    D = states.shape[0]
+    out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_direct", _DIRECT_ARGTYPES)
     build.check("decode_direct", fn(
-        build.ptr(stream), stream.numel(), build.ptr(states),
+        build.ptr(stream), build.ptr(stream_off), build.ptr(states),
         build.ptr(table.rows), build.ptr(table.slot_sym), table.sigma,
-        table.log2m, table.NR, table.NE, n, T, S, ring,
+        table.log2m, table.NR, table.NE, build.ptr(n), D, T, S, ring,
         build.ptr(out), build.ptr(err), build.current_stream(dev)))
     direct_launches += 1
     instance_launches["decode_direct"][which] += 1
@@ -159,11 +201,11 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
     return out
 
 
-_GROUPED_ARGTYPES = [ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
+_GROUPED_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                      ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                      ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                     ct.c_int, ct.c_int, ct.c_int64, ct.c_int, ct.c_int,
-                     ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
+                     ct.c_int, ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
+                     ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
                      ct.c_void_p]
 
 
@@ -183,33 +225,46 @@ def decode_grouped(stream: torch.Tensor, states: torch.Tensor,
     """Decode T lockstep steps of a frequency-grouped frame; arguments,
     result and errors as decode_search.  The per-rank table goes to
     shared memory when it fits (grouped_shared_tables), and the stream's
-    ring when it fits beside what is there.  CPU tensors run the plain
-    version (lane_codec.decode_grouped_plain); CUDA tensors launch the
-    kernel, in the instance choose_instance picks (`instance` forces
-    one)."""
-    global grouped_launches
+    ring when it fits beside what is there.  decode_grouped_batch on a
+    batch of one."""
     _check_inputs("decode_grouped", stream, states)
-    tensors = (stream, states, table.groups, table.bases, table.buckets,
-               table.table, table.nb)
+    return decode_grouped_batch(stream, *_one(stream, states, n), table, T,
+                                instance)[0]
+
+
+def decode_grouped_batch(stream: torch.Tensor, stream_off: torch.Tensor,
+                         states: torch.Tensor, n: torch.Tensor,
+                         table: GroupedDecDevice, T: int,
+                         instance: str | None = None) -> torch.Tensor:
+    """Decode D streams of one frequency-grouped frame; arguments, result
+    and errors as decode_search_batch.  CPU tensors run the plain version
+    (lane_codec.decode_grouped_plain, stream by stream); CUDA tensors
+    launch the kernel once for the batch."""
+    global grouped_launches
+    _check_batch("decode_grouped", stream, stream_off, states, n)
+    tensors = (stream, stream_off, states, n, table.groups, table.bases,
+               table.buckets, table.table, table.nb)
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_grouped_plain(stream, states, table, n, T)
+        return decode_batch_plain(decode_grouped_plain, stream, stream_off,
+                                  states, table, n, T)
     S = _lanes("decode_grouped", states, stream)
     smem_table, smem = grouped_shared_tables(table)
     which, ring = choose_instance("decode_grouped", smem, S,
                                   table.NR + table.NE, instance)
     dev = build.require_cuda("decode_grouped", *tensors)
-    out = torch.empty((T, S), dtype=torch.int32, device=dev)
+    D = states.shape[0]
+    out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = build.function("decode_grouped", _GROUPED_ARGTYPES)
     build.check("decode_grouped", fn(
-        build.ptr(stream), stream.numel(), build.ptr(states),
+        build.ptr(stream), build.ptr(stream_off), build.ptr(states),
         build.ptr(table.groups), build.ptr(table.bases),
         build.ptr(table.buckets),
         build.ptr(table.table) if table.table.numel() else None,
         build.ptr(table.nb) if table.NE else None, table.groups.shape[0],
         table.levels, table.shift, table.sigma, table.log2m, table.NR,
-        table.NE, n, T, S, ring, int(smem_table), build.ptr(out),
-        build.ptr(err), build.current_stream(dev)))
+        table.NE, build.ptr(n), D, T, S, ring, int(smem_table),
+        build.ptr(out), build.ptr(err), build.current_stream(dev)))
     grouped_launches += 1
     instance_launches["decode_grouped"][which] += 1
     _raise_on(err)
@@ -224,6 +279,27 @@ def _check_inputs(name: str, stream: torch.Tensor,
         raise ValueError(f"{name}: states must be a 1-d int32 tensor")
 
 
+def _one(stream: torch.Tensor, states: torch.Tensor, n: int):
+    """(stream_off, states, n) of a batch of one, on the stream's
+    device."""
+    meta = batch_of_one(stream.device, 0, stream.numel(), int(n))
+    return meta[:2], states[None], meta[2:]
+
+
+def _check_batch(name: str, stream: torch.Tensor, stream_off: torch.Tensor,
+                 states: torch.Tensor, n: torch.Tensor) -> None:
+    if stream.dim() != 1 or stream.dtype != torch.uint8:
+        raise ValueError(f"{name}: stream must be a 1-d uint8 tensor")
+    if states.dim() != 2 or states.dtype != torch.int32:
+        raise ValueError(f"{name}: states must be a (D, S) int32 tensor")
+    D = states.shape[0]
+    if stream_off.shape != (D + 1,) or stream_off.dtype != torch.int64:
+        raise ValueError(f"{name}: stream_off must be a ({D + 1},) int64 "
+                         "tensor")
+    if n.shape != (D,) or n.dtype != torch.int64:
+        raise ValueError(f"{name}: n must be a ({D},) int64 tensor")
+
+
 def _lanes(name: str, states: torch.Tensor, stream: torch.Tensor) -> int:
     """The lane count of a launch, after the checks that need no card:
     the kernels' limits on the stream's length and on S."""
@@ -231,7 +307,7 @@ def _lanes(name: str, states: torch.Tensor, stream: torch.Tensor) -> int:
         raise NotImplementedError(
             f"{name}: a stream of {stream.numel()} bytes; the kernel takes "
             f"at most {MAX_STREAM_BYTES}")
-    S = states.numel()
+    S = states.shape[-1]
     if S > MAX_LANES:
         raise NotImplementedError(
             f"{name}: S = {S} lanes; the kernel takes at most {MAX_LANES}")

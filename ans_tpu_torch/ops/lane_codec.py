@@ -24,12 +24,22 @@ Renorm and exception bytes are read high-first.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .tables import (A_L, DirectDevice, EncDevice, GroupedDecDevice,
                      GroupedEncDevice, SearchDevice)
 
 NROUNDS = 6  # 3 renorm + 3 exception byte rounds per step
+
+
+@functools.lru_cache(maxsize=64)
+def batch_of_one(device: torch.device, *values: int) -> torch.Tensor:
+    """The i64 array `values` on `device`, made once and kept: a batch of
+    one's per-stream arrays (its length n; a decode's stream offsets
+    [0, L] and n), which the batched kernels only read."""
+    return torch.tensor(values, dtype=torch.int64).to(device)
 
 
 def lane_steps(n: int, S: int) -> int:
@@ -264,6 +274,58 @@ def decode_direct_plain(stream: torch.Tensor, states: torch.Tensor,
                 r[:, 3] if table.NE else None, r[:, 2])
 
     return _decode_plain(stream, states, n, T, table.NR, table.NE, symbol)
+
+
+# --------------------------------------------------------------------------
+# the plain versions of the batched kernels: D streams, one after the other
+# --------------------------------------------------------------------------
+
+def scan_batch_plain(plain, syms: torch.Tensor, n: torch.Tensor, table):
+    """The scans of D streams by the one-stream plain version `plain`
+    (encode_scan_plain or encode_scan_grouped_plain): syms (D, T, S), n (D,)
+    i64.  Returns (packed (D, T, S) i32, states (D, S) i32)."""
+    outs = [plain(syms[d], int(nd), table)
+            for d, nd in enumerate(n.tolist())]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def place_batch_plain(packed: torch.Tensor, nb: torch.Tensor,
+                      excw: torch.Tensor, n: torch.Tensor):
+    """The placements of D streams by place_plain, one after the other in
+    one buffer: packed/nb/excw (D, T, S), n (D,) i64.  Returns (stream u8,
+    offsets (D, T + 1) i64: the offset of each step of each stream in
+    `stream`, then that stream's end)."""
+    D, T, _ = packed.shape
+    parts, at = [], 0
+    offsets = torch.zeros((D, T + 1), dtype=torch.int64,
+                          device=packed.device)
+    for d, nd in enumerate(n.tolist()):
+        stream, step_base, got = place_plain(packed[d], nb[d], excw[d],
+                                             int(nd))
+        parts.append(stream)
+        offsets[d, :T] = at + step_base
+        at += got
+        offsets[d, T] = at
+    return torch.cat(parts), offsets
+
+
+def decode_batch_plain(plain, stream: torch.Tensor,
+                       stream_off: torch.Tensor, states: torch.Tensor,
+                       table, n: torch.Tensor, T: int) -> torch.Tensor:
+    """The decodes of D streams by the one-stream plain version `plain`
+    (decode_search_plain, decode_direct_plain or decode_grouped_plain):
+    stream b is stream[stream_off[b]:stream_off[b + 1]], states (D, S), n
+    (D,) i64.  Returns (D, T, S) i32; a stream with n = 0 is not decoded
+    (its rows hold zeros)."""
+    D, S = states.shape
+    out = torch.zeros((D, T, S), dtype=torch.int32, device=states.device)
+    off = stream_off.tolist()
+    for d, nd in enumerate(n.tolist()):
+        if nd > 0:
+            out[d] = plain(stream[off[d]:off[d + 1]], states[d], table,
+                           int(nd), T)
+    return out
 
 
 def _decode_plain(stream, states, n: int, T: int, NR: int, NE: int,

@@ -2,21 +2,27 @@
 
     python3 -m ans_tpu_torch.profile_idle [--method ANSfold-2]
         [--input bench|zipf20] [--n N] [--lanes S] [--seed 42]
-        [--calls 5] [--trace DIR]
+        [--sections D] [--calls 5] [--trace DIR]
 
 Stages an input (bench.py's zipf(1.25), or zipf20 for the grouped path;
 ans_tpu_torch/inputs.py; n = 2^25 values by default) with
 `models.prepare_encoder` / `models.prepare_decoder` (ANSfold-2 by
 default) on cuda, then runs each `--calls` times under torch.profiler.
-`--method vbyte` or `streamvbyte` runs the splitter's wrappers instead
+`--sections D` stages the blocked container instead
+(`parallel.BlockCodec(method, D)`: its prepared encoder and decoder, one
+launch a kernel for all D sections).  `--method vbyte` or `streamvbyte`
+runs the splitter's wrappers instead
 (ops/bytesplit.py: K7, then K9 or K8) on the input on the card.  Each call is
 one `record_function` span that ends with `torch.cuda.synchronize()`,
 so the span's length is the call's wall time.  Its busy time is the
 union of the device intervals (kernels, copies, memsets) inside the
 span, so device work that overlaps is counted once.  The idle share is
-1 - busy / wall over all calls.  Prints the card's name and power limit,
-each call kind's wall, busy and idle share and the device time per
-operation name (per call), then one JSON line with the same numbers.
+1 - busy / wall over all calls.  The host's time in a span splits into
+the outermost torch operations and CUDA API calls (by name) and the rest
+(Python between them).  Prints the card's name and power limit, each
+call kind's wall, busy and idle share, the device time per operation
+name and the host's split (per call), then one JSON line with the same
+numbers.
 `--trace DIR` keeps the Chrome traces.
 """
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver")
 
 
 def union_length(intervals) -> float:
@@ -46,14 +53,27 @@ def union_length(intervals) -> float:
     return total
 
 
+def outermost(events):
+    """The host events that no other of `events` contains (one thread)."""
+    out, reach = [], float("-inf")
+    for e in sorted(events, key=lambda e: (e["ts"], -e["dur"])):
+        if e["ts"] >= reach:
+            out.append(e)
+            reach = e["ts"] + e["dur"]
+    return out
+
+
 def idle_share(events, label: str) -> dict:
     """Wall, busy and per-operation device time (us, summed over the
-    spans named `label`) from Chrome trace events."""
+    spans named `label`) from Chrome trace events, and the host's time:
+    inside the outermost torch operations and CUDA API calls, by name,
+    and outside them (Python between the calls)."""
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") == label]
     device = [e for e in events if e.get("cat") in DEVICE_CATS]
-    wall = busy = 0.0
-    ops = defaultdict(float)
+    host = [e for e in events if e.get("cat") in HOST_CATS]
+    wall = busy = in_calls = 0.0
+    ops, host_ops = defaultdict(float), defaultdict(float)
     for w0, w1 in spans:
         inside = [e for e in device
                   if e["ts"] < w1 and e["ts"] + e["dur"] > w0]
@@ -62,13 +82,21 @@ def idle_share(events, label: str) -> dict:
         wall += w1 - w0
         for e in inside:
             ops[e["name"]] += e["dur"]
+        for e in outermost([e for e in host if w0 <= e["ts"]
+                            and e["ts"] + e["dur"] <= w1]):
+            in_calls += e["dur"]
+            host_ops[e["name"]] += e["dur"]
     if not spans or not busy:
         raise RuntimeError(f"the trace holds no device work for {label}")
     k = len(spans)
     return {"calls": k, "wall_us": wall / k, "busy_us": busy / k,
             "idle_share": 1.0 - busy / wall,
             "ops_us": {name: t / k for name, t in
-                       sorted(ops.items(), key=lambda kv: -kv[1])}}
+                       sorted(ops.items(), key=lambda kv: -kv[1])},
+            "host_us": {"in_calls": in_calls / k,
+                        "outside_calls": (wall - in_calls) / k,
+                        "calls": {name: t / k for name, t in sorted(
+                            host_ops.items(), key=lambda kv: -kv[1])}}}
 
 
 def profile(fns: dict, calls: int, trace_dir: Path) -> dict:
@@ -119,6 +147,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=42,
                     help="seed of the bench input")
+    ap.add_argument("--sections", type=int, default=None,
+                    help="stage the blocked container of D sections")
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--trace", type=Path, default=None,
                     help="directory to keep the Chrome trace in")
@@ -139,6 +169,17 @@ def main(argv=None) -> int:
          else zipf20_input(args.n))
     if args.method in ("vbyte", "streamvbyte"):
         fns, engine = split_calls(args.method, x), None
+    elif args.sections:
+        from .parallel import BlockCodec
+        bc = BlockCodec(args.method, args.sections, args.lanes,
+                        device="cuda")
+        pe = bc.prepare_encoder(x)
+        pd = bc.prepare_decoder(pe.to_bytes(*pe()))
+        if not np.array_equal(pd.to_host(pd()), x):
+            print("profile_idle: the blocked decoder does not return the "
+                  "input", file=sys.stderr)
+            return 1
+        fns, engine = {"prepared_encode": pe, "prepared_decode": pd}, pd.engine
     else:
         pe = models.prepare_encoder(args.method, x, lanes=args.lanes,
                                     device="cuda")
@@ -156,15 +197,22 @@ def main(argv=None) -> int:
         args.trace.mkdir(parents=True, exist_ok=True)
         res = profile(fns, args.calls, args.trace)
     for label, r in res.items():
+        where = f", D={args.sections}" if args.sections else ""
         print(f"[{card}] {args.method} on {args.input}, {label} "
-              f"(n={args.n}, S={args.lanes}, engine {engine}): wall "
+              f"(n={args.n}, S={args.lanes}{where}, engine {engine}): wall "
               f"{r['wall_us']:.1f} us, busy {r['busy_us']:.1f} us per call, "
               f"idle share {r['idle_share']:.4f} over {r['calls']} calls")
         for name, us in r["ops_us"].items():
             print(f"    {us:10.1f} us  {name[:100]}")
+        h = r["host_us"]
+        print(f"  host: {h['in_calls']:.1f} us in torch operations and "
+              f"CUDA calls, {h['outside_calls']:.1f} us outside them")
+        for name, us in list(h["calls"].items())[:12]:
+            print(f"    {us:10.1f} us  {name[:100]}")
     print(json.dumps({"card": card, "method": args.method,
                       "input": args.input, "engine": engine, "n": args.n,
-                      "lanes": args.lanes, **res}))
+                      "lanes": args.lanes, "sections": args.sections,
+                      **res}))
     return 0
 
 

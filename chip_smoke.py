@@ -59,7 +59,22 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      on five more runs, K8's chunk count and ptxas report are printed, and
      each byte kernel's share of its byte bound.
   Phases 5-8 then hold their kernels against the plain versions at their
-  own shapes (K5 in both instances) and time both.
+  own shapes (K5 in both instances) and time both;
+  9. ANSmsb and ANSrfold-2 at full width on zipf20 (records in
+     fullwidth_zipf20.json): blob equal to the record, decode exact, K1,
+     K2 and the rule's decode kernel (K4) launched;
+ 10. the blocked container (ATFB) at full width: the golden container of
+     tests/fixtures/lane/blocked.json first; BlockCodec("ANSfold-2") and
+     BlockCodec("ANSfold-7") on zipf20 in D = 32 sections of S = 4096
+     lanes, the container equal to fullwidth_blocked.json, decode exact,
+     and each call one scan launch (K1 / K6), one placement launch (K2)
+     and one decode launch (K4 / K5) for all 32 sections; each batched
+     kernel (K1, K2, K3, K4 on ANSfold-2; K6, K2, K5 on ANSfold-7) on the
+     container's own staging against its batched plain version, and
+     timed; the prepared batched encode and decode timed beside the same
+     n as one stream; then ANSfold-2 in D = 128 sections (T = 64): an
+     exact round trip, K1, K2, K3 and K4 against their plain versions,
+     and its times.
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
 probe's on its own run; its time, its plain version's, and its bound: the
@@ -88,6 +103,7 @@ ROOT = Path(__file__).resolve().parent
 LANE_FIXTURES = ROOT / "tests" / "fixtures" / "lane"
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
+BLOCK_D, BLOCK_D_WIDE = 32, 128  # sections of phase 10
 RUNS, PLAIN_RUNS = 5, 1
 PLACE_REPEATS = 5  # K2 reruns that must write the same bytes
 BYTE_REPEATS = 5  # K7, K8 and K9 reruns that must give the same output
@@ -201,7 +217,7 @@ class Stage:
     def __init__(self, codec, values, lanes: int):
         from ans_tpu_torch.models.ans import _stage
         from ans_tpu_torch.ops import lane_codec
-        mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(values)
+        mapped, k, low, pfreqs, ffreqs, raw, _ = codec._enc_inputs(values)
         self.n = int(mapped.shape[0])
         self.S = lanes
         self.T = lane_codec.lane_steps(self.n, lanes)
@@ -760,6 +776,201 @@ def run_byte_codec(card: str, name: str, x: np.ndarray, path: Path) -> dict:
             "e2e_dec": e2e_dec}
 
 
+def check_batched(bc, x: np.ndarray, step_ns: float | None = None) -> dict:
+    """The batched kernels of a BlockCodec's container of x, staged as its
+    encode stages them ((D, T, S) inputs, the sections' lengths, the
+    shared table): the scan (K1 or K6), K2 and the decodes (the rule's
+    engine, and K3 forced on a value-order frame), each against its
+    batched plain version on the same inputs (all integer: tolerance
+    zero; the values of each section also equal its input), then timed as
+    check_kernels times them: one launch for the batch, CUDA events, min
+    of RUNS; the plain version's one run, for the comparison, is its
+    time; the bound: every input read once, the shared tables once; the
+    scan's chain bound the section's T steps."""
+    from ans_tpu_torch.ops import decode, encode, lane_codec, place, tables
+    _, (m, nb, ex), n, enc, _ = bc._front(x)
+    D, T, S = m.shape
+    where = f"in a batch of D={D} at n={len(x)}, S={S}"
+    grouped = isinstance(enc, tables.GroupedEncDevice)
+    scan, scan_plain = ((encode.encode_scan_grouped_batch,
+                         lane_codec.encode_scan_grouped_plain) if grouped
+                        else (encode.encode_scan_batch,
+                              lane_codec.encode_scan_plain))
+    sname = "encode_scan_grouped" if grouped else "encode_scan"
+    errs, plain_ms = {}, {}
+
+    def plain(name, fn, *args):
+        """A plain version's result; its one run is also its timing."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+        return out
+
+    packed, states = scan(m, n, enc)
+    errs[sname] = compare(sname, where, (packed, states), plain(
+        sname, lane_codec.scan_batch_plain, scan_plain, m, n, enc))
+    stream, offsets, ends = place.place_batch(packed, nb, ex, n)
+    errs["place"] = compare("place", where, (stream, offsets), plain(
+        "place", lane_codec.place_batch_plain, packed, nb, ex, n))
+    stream_off = torch.cat([offsets[:, 0], offsets[-1:, T]]).contiguous()
+    blob = bc.encode(x)
+    pd = bc.prepare_decoder(blob)
+    engines = [(pd.engine, pd.table)]
+    if not grouped:  # K3 forced beside the rule's K4
+        engines.append(("search",
+                        bc.prepare_decoder(blob, engine_name="search").table))
+    batch = {"search": decode.decode_search_batch,
+             "direct": decode.decode_direct_batch,
+             "grouped": decode.decode_grouped_batch}
+    plains = {"search": lane_codec.decode_search_plain,
+              "direct": lane_codec.decode_direct_plain,
+              "grouped": lane_codec.decode_grouped_plain}
+    runs = {sname: (lambda: scan(m, n, enc), enc),
+            "place": (lambda: place.place_batch(packed, nb, ex, n, ends),
+                      enc)}
+    for eng, tab in engines:
+        name = DECODE_KERNEL[eng]
+        out = batch[eng](stream, stream_off, states, n, tab, T)
+        require(np.array_equal(pd.to_host(out), x),
+                f"{name} {where} does not decode the sections' values")
+        want = plain(name, lane_codec.decode_batch_plain, plains[eng],
+                     stream, stream_off, states, tab, n, T)
+        errs[name] = compare(name, where, valid_outputs(out, n),
+                             valid_outputs(want, n))
+        runs[name] = (lambda f=batch[eng], t=tab: f(
+            stream, stream_off, states, n, t, T), tab)
+    items = D * T * S
+    moved = {sname: nbytes(m, packed, states, *[
+        t for t in vars(enc).values() if torch.is_tensor(t)]),
+        "place": nbytes(packed, nb, ex, offsets, stream) + 8}
+    for name, (_, tab) in runs.items():
+        if name not in moved:
+            moved[name] = 4 * items + nbytes(stream, stream_off, states, n, *[
+                t for t in vars(tab).values() if torch.is_tensor(t)])
+    res = {}
+    for name, (fn, tab) in runs.items():
+        res[name] = {"max_abs_err": errs[name], "ms": cuda_ms(fn),
+                     "plain_ms": plain_ms[name], **bound(
+                         name, moved[name], items,
+                         getattr(tab, "levels", getattr(tab, "depth", 0)))}
+    if step_ns is not None:  # the sections' scans run side by side
+        res[sname]["chain_bound_ms"] = T * step_ns / 1e6
+    return res
+
+
+def valid_outputs(out: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The first n[d] outputs of each stream of a batch, one after the
+    other (what a batched decode is held to)."""
+    flat = out.reshape(out.shape[0], -1)
+    return torch.cat([flat[d, :k] for d, k in enumerate(n.tolist())])
+
+
+def print_batched(card: str, where: str, res: dict) -> None:
+    for name, r in res.items():
+        chain = (f", chain bound {r['chain_bound_ms']:.4f} ms"
+                 if "chain_bound_ms" in r else "")
+        print(f"{card} {name}, one launch for {where}: {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}{chain}, max_abs_err {r['max_abs_err']}")
+
+
+def run_blocked(card: str, method: str, x: np.ndarray, D: int,
+                rec: dict | None) -> dict:
+    """BlockCodec(method) in D sections of FULL_LANES lanes on x: the
+    container equal to the record (when given), decode exact, and each
+    call one launch of the scan, of K2 and of the decode for all sections;
+    the prepared batched encode (pe.to_bytes(*pe()) the same container)
+    and decode timed.  Returns the launches of the encode and of the
+    decode, and the times."""
+    from ans_tpu_torch.parallel import BlockCodec
+    bc = BlockCodec(method, D, FULL_LANES, device=DEVICE)
+    reset_launches()
+    t0 = time.perf_counter()
+    blob = bc.encode(x)
+    e2e_enc = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    enc_launches = read_launches()
+    if rec is not None:
+        require(len(blob) == rec["blob_len"]
+                and sha256(blob) == rec["blob_sha256"],
+                f"{method} in {D} sections: container differs from the "
+                f"record: {len(blob)} bytes")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = bc.decode(blob, len(x))
+    e2e_dec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dec_launches = read_launches()
+    require(np.array_equal(out, x),
+            f"{method} in {D} sections: decode is not exact")
+    scan = [k for k in ("encode_scan", "encode_scan_grouped")
+            if enc_launches[k]]
+    dec = [k for k in DECODE_KERNEL.values() if dec_launches[k]]
+    require(len(scan) == 1 and enc_launches[scan[0]] == 1
+            and enc_launches["place"] == 1
+            and sum(enc_launches[k] for k in DECODE_KERNEL.values()) == 0,
+            f"{method} in {D} sections: the encode launched {enc_launches}, "
+            f"not one scan and one placement")
+    require(len(dec) == 1 and dec_launches[dec[0]] == 1
+            and sum(dec_launches[k] for k in ENCODE_PATH["search"]
+                    + ENCODE_PATH["grouped"]) == 0,
+            f"{method} in {D} sections: the decode launched {dec_launches}, "
+            f"not one decode")
+    pe = bc.prepare_encoder(x)
+    require(pe.to_bytes(*pe()) == blob,
+            f"{method} in {D} sections: prepared encoder bytes differ")
+    pd = bc.prepare_decoder(blob)
+    require(np.array_equal(pd.to_host(pd()), x),
+            f"{method} in {D} sections: prepared decode is not exact")
+    enc_ms, dec_ms = cuda_ms(pe), cuda_ms(pd)
+    n = len(x)
+    print(f"{card} {method} in {D} sections of {FULL_LANES} lanes: "
+          f"{len(blob)} bytes, {8 * len(blob) / n:.4f} bpi, sha256 "
+          f"{sha256(blob)[:12]}; encode launched {scan[0]} x1, place x1; "
+          f"decode {dec[0]} x1 ({pd.engine}); e2e (host clock, host data) "
+          f"encode {e2e_enc:.3f} s, decode {e2e_dec:.3f} s; prepared "
+          f"encode {n / enc_ms / 1e3:.1f}M ints/s ({enc_ms:.3f} ms), "
+          f"prepared decode {n / dec_ms / 1e3:.1f}M ints/s ({dec_ms:.3f} "
+          f"ms)")
+    return {"enc_launches": enc_launches, "dec_launches": dec_launches,
+            "enc_ms": enc_ms, "dec_ms": dec_ms, "engine": pd.engine,
+            "bytes": len(blob), "e2e_enc": e2e_enc, "e2e_dec": e2e_dec}
+
+
+def one_stream_times(name: str, x: np.ndarray) -> tuple:
+    """The prepared encode and decode of x as one stream (ms), decode
+    exact: the yardstick of the blocked times."""
+    from ans_tpu_torch import models
+    pe = models.prepare_encoder(name, x, lanes=FULL_LANES, device=DEVICE)
+    blob = pe.prelude + pe.to_bytes(*pe())
+    pd = models.prepare_decoder(name, blob, len(x), device=DEVICE)
+    require(np.array_equal(pd.to_host(pd()), x),
+            f"{name} as one stream: decode is not exact")
+    return cuda_ms(pe), cuda_ms(pd), pd.engine
+
+
+def check_golden_container() -> int:
+    """The committed containers of ans_tpu (blocked.json) re-encode to the
+    same bytes on the card and decode exactly."""
+    from ans_tpu_torch.parallel import BlockCodec
+    recs = json.loads((LANE_FIXTURES / "blocked.json").read_text())
+    for rec in recs:
+        x = np.fromfile(LANE_FIXTURES / rec["input"], dtype="<u4")
+        blob = (LANE_FIXTURES / rec["blob"]).read_bytes()
+        require(sha256(blob) == rec["sha256"], f"{rec['blob']} changed")
+        bc = BlockCodec(rec["method"], rec["sections"], rec["lanes"],
+                        device=DEVICE)
+        require(bc.encode(x) == blob,
+                f"encode of {rec['input']} differs from {rec['blob']}")
+        require(np.array_equal(bc.decode(blob, len(x)), x),
+                f"decode of {rec['blob']} differs from {rec['input']}")
+    return len(recs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -933,6 +1144,42 @@ def main() -> int:
                          plain_search=False, step_ns=step_ns)
     merge_errs(errs, bres)
     print_timed(card, "AnsByte on the vbyte stream of zipf20, S=4096", bres)
+
+    # 9. ANSmsb and ANSrfold-2 at full width on zipf20 (no K6: an msb
+    # alphabet has at most 1280 symbols, rfold-2's 1036 here)
+    for name in ("ANSmsb", "ANSrfold-2"):
+        run_codec(card, name, z20, find_record(zrec, name, z20), "search",
+                  "direct")
+    torch.cuda.synchronize()
+
+    # 10. the blocked container at full width: D = 32 sections, one batch
+    # a kernel
+    print(f"golden containers: {check_golden_container()} re-encoded and "
+          f"decoded exactly")
+    from ans_tpu_torch.parallel import BlockCodec
+    blk = LANE_FIXTURES / "fullwidth_blocked.json"
+    block_res, blocked = {}, {}
+    for name in ("ANSfold-2", "ANSfold-7"):
+        blocked[name] = run_blocked(card, name, z20, BLOCK_D,
+                                    find_record(blk, name, z20))
+        block_res[name] = check_batched(
+            BlockCodec(name, BLOCK_D, FULL_LANES, device=DEVICE), z20,
+            step_ns=step_ns)
+        merge_errs(errs, block_res[name])
+        print_batched(card, f"{name} in {BLOCK_D} sections, zipf20, n=2^25",
+                      block_res[name])
+        enc1, dec1, eng1 = one_stream_times(name, z20)
+        print(f"{card} {name} on zipf20, n=2^25, as one stream: prepared "
+              f"encode {enc1:.3f} ms, decode ({eng1}) {dec1:.3f} ms; in "
+              f"{BLOCK_D} sections {blocked[name]['enc_ms']:.3f} / "
+              f"{blocked[name]['dec_ms']:.3f} ms: decode "
+              f"{dec1 / blocked[name]['dec_ms']:.1f}x as fast")
+    run_blocked(card, "ANSfold-2", z20, BLOCK_D_WIDE, None)
+    wres = check_batched(BlockCodec("ANSfold-2", BLOCK_D_WIDE, FULL_LANES,
+                                    device=DEVICE), z20, step_ns=step_ns)
+    merge_errs(errs, wres)
+    print_batched(card, f"ANSfold-2 in {BLOCK_D_WIDE} sections, zipf20, "
+                        f"n=2^25", wres)
     del z20
 
     launches = {name: main_run["launches"][name]
@@ -950,6 +1197,22 @@ def main() -> int:
     print(f"{card} decode_direct at the main path's shapes: "
           f"{kres['decode_direct']['ms']:.3f} ms against decode_search "
           f"{kres['decode_search']['ms']:.3f} ms")
+    # each lane kernel's batched launch: ms and bound at D = 32 (ANSfold-2
+    # for K1-K4, ANSfold-7 for K5/K6 and K2) and D = 128 (ANSfold-2), and
+    # its launches in phase 10's encode and decode calls
+    batched = {}
+    for D, res in ((BLOCK_D, {**block_res["ANSfold-7"],
+                              **block_res["ANSfold-2"]}),
+                   (BLOCK_D_WIDE, wres)):
+        for name, r in res.items():
+            batched.setdefault(name, {})[f"D={D}"] = {
+                k: r[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                  "bound_ms", "bound_by", "chain_bound_ms")
+                if k in r}
+    for name in batched:
+        batched[name]["launches"] = sum(
+            run[key][name] for run in blocked.values()
+            for key in ("enc_launches", "dec_launches"))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [
@@ -960,6 +1223,7 @@ def main() -> int:
          "bound_by": timed[name]["bound_by"], "library_ms": None,
          **({"chain_bound_ms": timed[name]["chain_bound_ms"]}
             if "chain_bound_ms" in timed[name] else {}),
+         **({"batched": batched[name]} if name in batched else {}),
          **({"note": "a probe: its work is the latency it measures, so it "
                      "has no work bound; no PyTorch call computes a "
                      "dependency chain of one primitive"}

@@ -2,18 +2,23 @@
 
     JAX_PLATFORMS=cpu python tests/fixtures/lane/make_fixtures.py \
         [--full-width] [--grouped-full-width] [--bytes-full-width]
+        [--msb-full-width] [--blocked-full-width]
         [--full-width-input FILE --numpy VERSION [--kind KIND]]
 
 Writes, next to this file:
   * *.u32                     inputs (little-endian u32), made from fixed
                               seeds;
   * *.lane                    ans_tpu lane-engine blobs of those inputs:
-                              ANSfold-1/2/4, and the large-alphabet routes
+                              ANSfold-1/2/4, ANSmsb, ANSrfold-2 (the
+                              reorder taken), and the large-alphabet routes
                               (ANS with the tail escape onto the pivot
                               search, ANS and ANSfold-7 on the grouped
                               layout, ANSsint-80);
   * manifest.json             for each blob: input, method, lanes, n, sha256
                               and its frame;
+  * *.atfb, blocked.json      ans_tpu BlockCodec containers (ATFB, its
+                              portable engine on a CPU mesh) and their
+                              record: method, sections, lanes, n, sha256;
   * fullwidth.json            (--full-width) the record of the full-width
                               case of bench.py: ANSfold-2 on zipf(1.25),
                               n = 2^25, seed 42, S = 4096, honest frame;
@@ -27,7 +32,16 @@ Writes, next to this file:
                               path at full width on zipf20 (n = 2^25):
                               the vbyte and streamvbyte split streams and
                               the vbyteANS and streamvbyteANS blobs
-                              (default lane count of the split stream).
+                              (default lane count of the split stream);
+                              (--msb-full-width) ANSmsb and ANSrfold-2 on
+                              zipf20, into fullwidth_zipf20.json;
+  * fullwidth_blocked.json    (--blocked-full-width) BlockCodec containers
+                              of ANSfold-2 and ANSfold-7 on zipf20 in
+                              D = 32 sections of S = 4096 lanes, written by
+                              the portable engine on a CPU mesh of 32
+                              devices (every section stays under the 3 MB
+                              section cap, so the production engine writes
+                              the same bytes).
 
 numpy's zipf sampler is not stable across numpy releases (2.0.2 and 2.3.5
 draw different values from one seed), so the full-width records keep one
@@ -56,6 +70,15 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
+# the blocked containers' CPU mesh: as many virtual devices as sections
+# (read once, when JAX is first imported)
+BLOCKED_D = 32
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        f"{_flags} --xla_force_host_platform_device_count={BLOCKED_D}"
+    ).strip()
+
 # (blob file, input file, method, lanes; None = the default lane count)
 BLOBS = (
     ("zipf20k.fold2.s32.lane", "zipf20k.u32", "ANSfold-2", 32),
@@ -68,6 +91,13 @@ BLOBS = (
     ("dense48k.ans.lane", "dense48k.u32", "ANS", 256),
     ("dense48k.sint80.lane", "dense48k.u32", "ANSsint-80", None),
     ("zipf60k.fold7.lane", "zipf60k.u32", "ANSfold-7", None),
+    ("zipf20k.msb.lane", "zipf20k.u32", "ANSmsb", None),
+    ("zipf60k.rfold2.lane", "zipf60k.u32", "ANSrfold-2", None),
+)
+
+# (container file, input file, method, sections, lanes)
+CONTAINERS = (
+    ("zipf20k.fold2.d2.atfb", "zipf20k.u32", "ANSfold-2", 2, None),
 )
 
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
@@ -150,7 +180,13 @@ def lane_record(codec, blob: bytes) -> dict:
     (sigma counts the prelude's live symbols, before any tail escape)."""
     from ans_tpu.models import framing
     from ans_tpu.reference_model.model import load_prelude
-    nfreqs, _ = load_prelude(blob)
+    # rfold's reorder header stands in front of the prelude
+    reorder = getattr(codec, "name", "").startswith("ANSrfold-")
+    skip = 0
+    if reorder and int.from_bytes(blob[:4], "little") == 1:
+        from ans_tpu.constants import fold_threshold
+        skip = 4 * fold_threshold(codec.fidelity)
+    nfreqs, _ = load_prelude(blob[4 + skip:] if reorder else blob)
     dt, off = codec._dec_table(blob)
     S, _, payload, t_sec, sec_len = framing.parse(blob, off)
     return {"M": int(nfreqs.sum()), "sigma": int(np.count_nonzero(nfreqs)),
@@ -167,8 +203,12 @@ def codec_of(method: str, lanes=None):
         return ans.AnsFold(int(arg), lanes=lanes)
     if kind == "ANSsint":
         return ans.AnsSint(int(arg), lanes=lanes)
+    if kind == "ANSrfold":
+        return ans.AnsReorderFold(int(arg), lanes=lanes)
     if method == "ANS":
         return ans.AnsInt(lanes=lanes)
+    if method == "ANSmsb":
+        return ans.AnsMsb(lanes=lanes)
     raise ValueError(f"no fixture codec for {method!r}")
 
 
@@ -191,6 +231,13 @@ def main(argv=None) -> None:
                     help="add this numpy's zipf20 stream under vbyte, "
                          "streamvbyte, vbyteANS and streamvbyteANS to "
                          "fullwidth_bytes.json")
+    ap.add_argument("--msb-full-width", action="store_true",
+                    help="add this numpy's zipf20 stream under ANSmsb and "
+                         "ANSrfold-2 to fullwidth_zipf20.json")
+    ap.add_argument("--blocked-full-width", action="store_true",
+                    help="add this numpy's zipf20 stream's BlockCodec "
+                         "containers (ANSfold-2, ANSfold-7; D = 32) to "
+                         "fullwidth_blocked.json")
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -210,6 +257,17 @@ def main(argv=None) -> None:
                          "n": len(x), "sha256": sha256(blob),
                          **lane_record(codec, blob)})
     (HERE / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
+    containers = []
+    for blob_name, inp, method, D, lanes in CONTAINERS:
+        x = inputs[inp]
+        blob = blocked_codec(method, D, lanes).encode(x)
+        (HERE / blob_name).write_bytes(blob)
+        containers.append({"blob": blob_name, "input": inp,
+                           "method": method, "sections": D, "lanes": lanes,
+                           "n": len(x), "sha256": sha256(blob),
+                           **container_record(blob)})
+    (HERE / "blocked.json").write_text(json.dumps(containers, indent=1)
+                                       + "\n")
 
     if args.full_width:
         add_full_width("bench", full_width_input(), np.__version__)
@@ -218,6 +276,11 @@ def main(argv=None) -> None:
         add_full_width("dense22", dense22_input(), np.__version__)
     if args.bytes_full_width:
         add_bytes_full_width(zipf20_input(), np.__version__)
+    if args.msb_full_width:
+        add_full_width("zipf20", zipf20_input(), np.__version__,
+                       ("ANSmsb", "ANSrfold-2"))
+    if args.blocked_full_width:
+        add_blocked_full_width(zipf20_input(), np.__version__)
     if args.full_width_input:
         import lzma
         raw = lzma.decompress(Path(args.full_width_input).read_bytes())
@@ -233,7 +296,8 @@ KINDS = {
                      ".zipf(1.25, 2**25) - 1, clipped to 2**28 - 1",
         "method": "ANSfold-2", "n": FULL_N, "seed": FULL_SEED,
         "lanes": FULL_LANES, "max_frame": None}, ("ANSfold-2",), FULL_N),
-    "zipf20": ("fullwidth_zipf20.json", None, ("ANSfold-7", "ANS"), FULL_N),
+    "zipf20": ("fullwidth_zipf20.json", None,
+               ("ANSfold-7", "ANS", "ANSmsb", "ANSrfold-2"), FULL_N),
     "dense22": ("fullwidth_zipf20.json", None, ("ANS",), DENSE_N),
 }
 
@@ -247,11 +311,13 @@ ZIPF20_HEADER = {
     "lanes": FULL_LANES, "max_frame": None}
 
 
-def add_full_width(kind: str, x: np.ndarray, numpy_version: str) -> None:
-    """Encode one full-width input stream with each of its methods and
-    merge the entries into the kind's record file (keyed by the input's
-    sha256 and the method)."""
-    fname, header, methods, n = KINDS[kind]
+def add_full_width(kind: str, x: np.ndarray, numpy_version: str,
+                   methods=None) -> None:
+    """Encode one full-width input stream with each of its methods (or
+    `methods`) and merge the entries into the kind's record file (keyed by
+    the input's sha256 and the method)."""
+    fname, header, kind_methods, n = KINDS[kind]
+    methods = methods or kind_methods
     if len(x) != n:
         raise ValueError(f"{kind} input has {len(x)} values, not {n}")
     path = HERE / fname
@@ -275,6 +341,68 @@ def add_full_width(kind: str, x: np.ndarray, numpy_version: str) -> None:
             entry = {"input": kind, "method": method, **entry}
         rec["inputs"] = [e for e in rec["inputs"]
                          if (e["input_sha256"], e.get("method", method))
+                         != (input_sha, method)]
+        rec["inputs"].append(entry)
+    path.write_text(json.dumps(rec, indent=1) + "\n")
+
+
+def blocked_codec(method: str, D: int, lanes=None):
+    """ans_tpu's BlockCodec of `method` over a CPU mesh of D devices, on
+    its portable engine."""
+    from ans_tpu.parallel import BlockCodec, make_mesh
+    return BlockCodec(method, make_mesh(D), lanes=lanes, engine="xla")
+
+
+def container_record(blob: bytes) -> dict:
+    """Each section's lane count, cut and stream length in an ATFB
+    container (its header as parallel.block_runtime writes it)."""
+    import struct
+    from ans_tpu.models import framing
+    from ans_tpu.parallel.block_runtime import describe_container
+    method, _, D = describe_container(blob)
+    pos = 16
+    if method.startswith("ANSrfold-"):
+        from ans_tpu.constants import fold_threshold
+        flag = int.from_bytes(blob[pos:pos + 4], "little")
+        pos += 4 + (4 * fold_threshold(int(method.split("-")[1]))
+                    if flag == 1 else 0)
+    (plen,) = struct.unpack_from("<I", blob, pos)
+    pos += 4 + plen
+    secs = []
+    for _ in range(D):
+        (slen,) = struct.unpack_from("<I", blob, pos)
+        S, _, payload, t_sec, sec_len = framing.parse(
+            blob[pos + 4:pos + 4 + slen], 0)
+        secs.append((S, int(t_sec), len(sec_len), len(payload)))
+        pos += 4 + slen
+    return {"lanes_of_sections": sorted({s[0] for s in secs}),
+            "t_sec": [s[1] for s in secs],
+            "cuts": [s[2] for s in secs],
+            "stream_lens": [s[3] for s in secs]}
+
+
+BLOCKED_METHODS = ("ANSfold-2", "ANSfold-7")
+
+
+def add_blocked_full_width(x: np.ndarray, numpy_version: str) -> None:
+    """The containers of zipf20 in BLOCKED_D sections of FULL_LANES lanes
+    under BLOCKED_METHODS, merged into fullwidth_blocked.json (keyed as
+    add_full_width keys them)."""
+    path = HERE / "fullwidth_blocked.json"
+    rec = (json.loads(path.read_text()) if path.exists() else {
+        "generators": {"zipf20": ZIPF20_HEADER["generators"]["zipf20"]},
+        "sections": BLOCKED_D, "lanes": FULL_LANES,
+        "engine": "ans_tpu BlockCodec(engine='xla') on a CPU mesh of "
+                  f"{BLOCKED_D} devices", "inputs": []})
+    input_sha = sha256(x.tobytes())
+    for method in BLOCKED_METHODS:
+        blob = blocked_codec(method, BLOCKED_D, FULL_LANES).encode(x)
+        entry = {"input": "zipf20", "method": method,
+                 "numpy": numpy_version, "input_sha256": input_sha,
+                 "blob_len": len(blob), "blob_sha256": sha256(blob),
+                 **container_record(blob)}
+        rec["inputs"] = [e for e in rec["inputs"]
+                         if (e["input_sha256"], e["method"])
                          != (input_sha, method)]
         rec["inputs"].append(entry)
     path.write_text(json.dumps(rec, indent=1) + "\n")

@@ -26,7 +26,11 @@ K8 and K9 sizes at chunk multiples +-1, elements across chunk boundaries
 (K8: every length at a chunk's last element, a partial last control
 byte), streams at every odd address, a look-back past one window,
 repeated calls and (K8) streams one byte short; for the step probe every
-chain against its plain version.
+chain against its plain version; for the batched K1-K6 batches of 1 to
+133 streams of unequal length with an empty one, at 32 to 16384 lanes,
+both decode instances and K2's chain across the streams, the batch of
+one against the one-stream wrappers, and BlockCodec on the card against
+the CPU's container.
 """
 
 import hashlib
@@ -366,7 +370,7 @@ def _grouped_run(m_ts, nb_ts, ex_ts, n, enc, dec):
 def _codec_run(codec, x, S, cuda):
     """A codec's own staging and tables (encode as encode() does, decode
     with the table the prelude gives)."""
-    mapped, k, low, pfreqs, ffreqs, raw = codec._enc_inputs(x)
+    mapped, k, low, pfreqs, ffreqs, raw, _ = codec._enc_inputs(x)
     enc, staged = _stage(mapped, k, low, len(x), ffreqs, raw, S)
     assert isinstance(enc, tables.GroupedEncDevice)
     table, _ = codec._dec_table(codec.encode(x))
@@ -1237,3 +1241,224 @@ def test_svb_every_length_at_a_chunks_last_element(cuda, length, n):
     x = torch.from_numpy(vals.view(np.int32)).to(cuda)
     ctrl, data = bytesplit.svb_encode(x)
     assert torch.equal(_svb_checked(ctrl, data, n), x)
+
+
+# --------------------------------------------------------------------------
+# the batched kernels: D streams of one model in one launch of K1/K6, K2
+# and K3/K4/K5 (the sections of a blocked container)
+# --------------------------------------------------------------------------
+
+def _batch_lengths(D, T, S, seed):
+    """D stream lengths of at most T * S positions: unequal, the first
+    full, one empty (from D = 2 on), one a single position (from D = 3)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1, T * S + 1, size=D)
+    n[0] = T * S
+    if D >= 2:
+        n[D // 2] = 0
+    if D >= 3:
+        n[-1] = 1
+    return n.astype(np.int64)
+
+
+def _batch_stage(kind, D, T, S, cuda, seed=0):
+    """(enc, dec tables, (D, T, S) staged inputs, n (D,) i64, values):
+    kind "fold" (fold-2 on zipf values with exception bytes, K1/K3/K4) or
+    "grouped" (fold-7 over 2^20-value data, K6 with its in-kernel rank
+    map, K5)."""
+    n = _batch_lengths(D, T, S, seed)
+    total = int(n.sum())
+    # the model's values: the batch's first, then more (a frame with more
+    # than 2^13 live symbols for the grouped kind whatever the batch)
+    size = max(total, 60000)
+    if kind == "fold":
+        x = _values(size, seed, wide=True)
+        fidelity = 2
+    else:
+        x = np.random.default_rng(seed + 1).integers(
+            0, 1 << 15, size=size).astype(np.uint32)
+        fidelity = 7
+    codec = AnsFold(fidelity, device=cuda)
+    mapped, k, low, pfreqs, ffreqs, raw, _ = codec._enc_inputs(x)
+    enc, _ = _stage(mapped, k, low, len(x), ffreqs, raw, S)
+    assert isinstance(enc, tables.GroupedEncDevice) == (kind == "grouped")
+    dec = codec._table(pfreqs)
+    staged = []
+    starts = np.concatenate(([0], np.cumsum(n)))
+    for t in (mapped, k, low):
+        out = torch.zeros((D, T * S), dtype=torch.int32, device=cuda)
+        for d in range(D):
+            out[d, :n[d]] = t[starts[d]:starts[d + 1]]
+        staged.append(out.reshape(D, T, S))
+    return (enc, dec, staged, torch.from_numpy(n).to(cuda), x[:total],
+            starts)
+
+
+def _valid(out, n):
+    """The decoded values of each stream, one after the other (host)."""
+    flat = out.reshape(out.shape[0], -1)
+    return torch.cat([flat[d, :int(nd)] for d, nd in enumerate(
+        n.tolist())]).cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["fold", "grouped"])
+@pytest.mark.parametrize("D,S,T", [(1, 4096, 6), (2, 32, 70), (3, 16384, 2),
+                                   (8, 4096, 5), (8, 32, 40),
+                                   (133, 4096, 3), (133, 32, 9)])
+def test_batched_kernels_match_plain(cuda, kind, D, S, T):
+    """K1 or K6, K2 and the decodes (K3 and K4, or K5; each in both
+    instances) on a batch of D streams of unequal length, one of them
+    empty, against the batched plain versions, one launch each; the
+    batch decodes to its input; K2's chain runs across the streams (at
+    D = 133, S = 32 over a thousand chunks)."""
+    enc, dec, (m, nb, ex), n, x, _ = _batch_stage(kind, D, T, S, cuda, D)
+    scan, scan_plain = ((encode.encode_scan_grouped_batch,
+                         lane_codec.encode_scan_grouped_plain)
+                        if kind == "grouped" else
+                        (encode.encode_scan_batch,
+                         lane_codec.encode_scan_plain))
+    counts = (encode.launches + encode.grouped_launches, place.launches)
+    packed, states = scan(m, n, enc)
+    pp, ps = lane_codec.scan_batch_plain(scan_plain, m, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+    stream, offsets, ends = place.place_batch(packed, nb, ex, n)
+    ws, wo = lane_codec.place_batch_plain(packed, nb, ex, n)
+    assert torch.equal(stream, ws) and torch.equal(offsets.cpu(), wo.cpu())
+    np.testing.assert_array_equal(ends, wo[:, T].cpu().numpy())
+    assert (encode.launches + encode.grouped_launches, place.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    # the same bytes on a repeated run, the ends checked
+    assert torch.equal(place.place_batch(packed, nb, ex, n, ends)[0], stream)
+    stream_off = torch.cat([offsets[:, 0], offsets[-1:, T]]).contiguous()
+    engines = (("grouped", decode.decode_grouped_batch,
+                lane_codec.decode_grouped_plain),) if kind == "grouped" else (
+        ("search", decode.decode_search_batch,
+         lane_codec.decode_search_plain),
+        ("direct", decode.decode_direct_batch,
+         lane_codec.decode_direct_plain))
+    for name, kernel, plain in engines:
+        tab = tables.to_device(tables.materialize_slots(dec)
+                               if name == "direct" else dec, cuda)
+        want = lane_codec.decode_batch_plain(plain, stream, stream_off,
+                                             states, tab, n, T)
+        for instance in (None, "global"):
+            before = (decode.launches + decode.direct_launches
+                      + decode.grouped_launches)
+            out = kernel(stream, stream_off, states, n, tab, T,
+                         instance=instance)
+            assert (decode.launches + decode.direct_launches
+                    + decode.grouped_launches) == before + 1
+            got = _valid(out, n)
+            np.testing.assert_array_equal(got, _valid(want, n))
+            np.testing.assert_array_equal(got, x)
+
+
+@pytest.mark.parametrize("engine_name", ["search", "direct"])
+def test_batch_of_one_is_the_one_stream_kernel(cuda, engine_name):
+    """The one-stream wrappers are the batch of one: the same words, bytes
+    and values, one launch each."""
+    enc, dec, (m, nb, ex), n, x, _ = _batch_stage("fold", 1, 9, 4096, cuda)
+    n1 = int(n[0])
+    packed, states = encode.encode_scan(m[0], n1, enc)
+    bp, bs = encode.encode_scan_batch(m, n, enc)
+    assert torch.equal(packed, bp[0]) and torch.equal(states, bs[0])
+    stream, step_base, total = place.place(packed, nb[0], ex[0], n1)
+    s2, off, ends = place.place_batch(bp, nb, ex, n)
+    assert torch.equal(stream, s2) and total == int(ends[0])
+    assert torch.equal(step_base, off[0, :-1])
+    tab = tables.to_device(tables.materialize_slots(dec)
+                           if engine_name == "direct" else dec, cuda)
+    one = {"search": decode.decode_search,
+           "direct": decode.decode_direct}[engine_name]
+    batch = {"search": decode.decode_search_batch,
+             "direct": decode.decode_direct_batch}[engine_name]
+    out = one(stream, states, tab, n1, 9)
+    stream_off = torch.tensor([0, total], dtype=torch.int64, device=cuda)
+    assert torch.equal(out, batch(stream, stream_off, bs, n, tab, 9)[0])
+    np.testing.assert_array_equal(_valid(out[None], n), x)
+
+
+def test_batch_of_empty_streams(cuda):
+    """A batch whose streams are all empty writes no byte and decodes to
+    nothing; a truncated stream in a batch raises."""
+    enc, dec, (m, nb, ex), n, x, starts = _batch_stage("fold", 4, 6, 32,
+                                                        cuda, 3)
+    zero = torch.zeros_like(n)
+    packed, states = encode.encode_scan_batch(m, zero, enc)
+    stream, offsets, ends = place.place_batch(packed, nb, ex, zero)
+    assert stream.numel() == 0 and not ends.any()
+    tab = tables.to_device(dec, cuda)
+    stream_off = torch.zeros(5, dtype=torch.int64, device=cuda)
+    out = decode.decode_search_batch(stream, stream_off, states, zero, tab,
+                                     6)
+    assert _valid(out, zero).size == 0
+    packed, states = encode.encode_scan_batch(m, n, enc)
+    stream, offsets, _ = place.place_batch(packed, nb, ex, n)
+    stream_off = torch.cat([offsets[:, 0], offsets[-1:, 6]]).contiguous()
+    cut = stream_off.clone()
+    # stream 0 one byte short of its end (the later streams keep their
+    # lengths and start a byte early)
+    cut[1:] -= 1
+    cut[0] = 0
+    with pytest.raises(ValueError, match="corrupt"):
+        decode.decode_search_batch(stream, cut, states, n, tab, 6)
+
+
+@pytest.mark.parametrize("kind,engine_name", [("fold", "search"),
+                                              ("fold", "direct"),
+                                              ("grouped", "grouped")])
+@pytest.mark.parametrize("instance", [None, "global"])
+def test_batch_later_stream_truncated_raises(cuda, kind, engine_name,
+                                             instance):
+    """A batch whose last stream with bytes, not stream 0, is one byte
+    short raises: that stream's block checks its reads against its own
+    end, in the instance the wrapper picks and on global loads.  The
+    intact batch decodes to its input."""
+    enc, dec, (m, nb, ex), n, x, _ = _batch_stage(kind, 4, 6, 32, cuda, 3)
+    scan = (encode.encode_scan_grouped_batch if kind == "grouped"
+            else encode.encode_scan_batch)
+    packed, states = scan(m, n, enc)
+    stream, offsets, _ = place.place_batch(packed, nb, ex, n)
+    stream_off = torch.cat([offsets[:, 0], offsets[-1:, 6]]).contiguous()
+    lens = torch.diff(stream_off).tolist()
+    d = max(i for i, length in enumerate(lens) if length > 0)
+    assert d > 0
+    tab = tables.to_device(tables.materialize_slots(dec)
+                           if engine_name == "direct" else dec, cuda)
+    kernel = {"search": decode.decode_search_batch,
+              "direct": decode.decode_direct_batch,
+              "grouped": decode.decode_grouped_batch}[engine_name]
+    np.testing.assert_array_equal(_valid(kernel(
+        stream, stream_off, states, n, tab, 6, instance=instance), n), x)
+    cut = stream_off.clone()
+    cut[d + 1:] -= 1  # stream d one byte short; the streams after it empty
+    with pytest.raises(ValueError, match="corrupt"):
+        kernel(stream, cut, states, n, tab, 6, instance=instance)
+
+
+@pytest.mark.parametrize("method", ["ANSfold-2", "ANSfold-7", "ANSmsb", "ANS",
+                                    "ANSrfold-2"])
+@pytest.mark.parametrize("D", [1, 3, 8])
+def test_blocked_on_card_equals_cpu(cuda, method, D):
+    """BlockCodec on the card writes the container the CPU's plain
+    versions write, decodes it exactly, and each call is one scan, one
+    placement and one decode launch."""
+    from ans_tpu_torch.parallel import BlockCodec
+    rng = np.random.default_rng(D)
+    x = (rng.zipf(1.2, size=30000) - 1).clip(0, (1 << 20) - 1).astype(
+        np.uint32)
+    if method == "ANS":
+        x = x % 5000
+    want = BlockCodec(method, D, 128, device="cpu").encode(x)
+    codec = BlockCodec(method, D, 128, device=cuda)
+    counts = (encode.launches + encode.grouped_launches, place.launches,
+              decode.launches + decode.direct_launches
+              + decode.grouped_launches)
+    blob = codec.encode(x)
+    assert blob == want
+    np.testing.assert_array_equal(codec.decode(blob, len(x)), x)
+    assert (encode.launches + encode.grouped_launches, place.launches,
+            decode.launches + decode.direct_launches
+            + decode.grouped_launches) == tuple(c + 1 for c in counts)
+    pe = codec.prepare_encoder(x)
+    assert pe.to_bytes(*pe()) == want

@@ -21,6 +21,7 @@ from ans_tpu.models import framing as jframing
 from ans_tpu.ops import escape as jescape
 from ans_tpu.ops import grouped as jgrouped
 from ans_tpu.ops import tables as jtables
+from ans_tpu.parallel import block_runtime as jblock
 import ans_tpu.constants as jconstants
 from ans_tpu.reference_model import interp as jinterp
 from ans_tpu.reference_model import mappings as jmappings
@@ -33,6 +34,7 @@ import ans_tpu_torch.constants as constants
 from ans_tpu_torch.csrc import build
 from ans_tpu_torch.models import config, framing
 from ans_tpu_torch.ops import escape, grouped, tables
+from ans_tpu_torch.parallel import block_runtime
 from ans_tpu_torch.reference_model import (byte_model, interp, mappings,
                                            model, vbyte)
 
@@ -71,6 +73,71 @@ def test_choose_sections(seed, cap):
     assert t_sec == jt
     np.testing.assert_array_equal(sec_len, jl)
     assert sec_len.sum() == total
+
+
+def _frames():
+    rng = np.random.default_rng(4)
+    small = rng.integers(1, 30, 300).astype(np.uint64)
+    small[0] += (1 << 13) - int(small.sum())
+    sparse = np.zeros(9000, np.uint64)  # longer than 2^13, 100 live
+    sparse[rng.choice(9000, 100, replace=False)] = 40
+    sparse[np.flatnonzero(sparse)[0]] += (1 << 12) - int(sparse.sum())
+    wide = np.ones(9000, np.uint64)  # grouped
+    wide[0] += (1 << 14) - 9000
+    single = np.zeros(10, np.uint64)
+    single[3] = 1 << 10  # one symbol owns the frame
+    flat = np.full(1 << 13, 1, np.uint64)  # sigma = 2^13, M = 2^13
+    return {"small": small, "sparse": sparse, "wide": wide,
+            "single": single, "flat": flat}
+
+
+@pytest.mark.parametrize("frame", sorted(_frames()))
+@pytest.mark.parametrize("S", [32, 64, 128, 256, 384, 512, 4096])
+def test_production_engine_predicate(frame, S):
+    """production_engine_ok equals ans_tpu's BlockCodec._encode_pallas_ok
+    on the same frame (lane counts below, at and past 128, S/128 not a
+    power of two, sigma past 2^13 with and without the grouped layout, a
+    frame one symbol owns)."""
+    nf = _frames()[frame]
+    layout = (jgrouped.build_group_layout(nf)
+              if jgrouped.use_grouped_layout(nf) else None)
+    et = jtables.build_enc_table(nf, layout)
+    want = jblock.BlockCodec._encode_pallas_ok(None, et, S, layout)
+    assert block_runtime.production_engine_ok(
+        nf, S, layout is not None) == want
+
+
+def _step_bases(rng, T, mean, hot=None):
+    per = rng.poisson(mean, size=T)
+    if hot is not None:
+        per[hot] *= 40  # a run of heavy steps
+    return np.concatenate(([0], np.cumsum(per)[:-1])), int(per.sum())
+
+
+@pytest.mark.parametrize("seed,cap", [(0, 3 << 20), (1, 4000), (2, 700),
+                                      (3, 90)])
+def test_choose_sections_joint_copy(seed, cap):
+    """The copy equals ans_tpu's on crafted step offsets of four streams
+    (one of them empty), down to the 32-step quantum."""
+    rng = np.random.default_rng(seed)
+    T = int(rng.integers(40, 700))
+    streams = [_step_bases(rng, T, m) for m in (3, 9, 0)]
+    streams.append(_step_bases(rng, T, 2, hot=slice(T // 3, T // 3 + 40)))
+    bases = [b for b, _ in streams]
+    totals = [t for _, t in streams]
+    got = framing.choose_sections_joint(bases, totals, T, cap_bytes=cap)
+    want = jframing.choose_sections_joint(bases, totals, T, cap_bytes=cap)
+    assert got[0] == want[0]
+    for a, b, tot in zip(got[1], want[1], totals):
+        np.testing.assert_array_equal(a, b)
+        assert a.sum() == tot
+
+
+def test_blocked_container_constants():
+    """The ATFB magic and kind ids are wire format."""
+    assert block_runtime.MAGIC == jblock.MAGIC
+    assert block_runtime.KINDS == jblock.KINDS
+    assert block_runtime.VERSION == 2
 
 
 def test_choose_sections_empty():
@@ -212,8 +279,9 @@ def test_to_device_accepts_reference_tables(kind):
 def test_imports_without_jax():
     """The port runs where neither JAX nor ans_tpu is present: importing
     every module, chip_smoke.py included, with `jax` and `ans_tpu` blocked
-    must work; ANSfold-2, ANS (the grouped layout and the tail escape) and
-    vbyteANS round-trip there."""
+    must work; ANSfold-2, ANS (the grouped layout and the tail escape),
+    ANSmsb, ANSrfold-2, vbyteANS and the blocked container round-trip
+    there."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -227,8 +295,9 @@ def test_imports_without_jax():
         assert {"ans_tpu_torch.models.bytes", "ans_tpu_torch.ops.bytesplit",
                 "ans_tpu_torch.reference_model.byte_model",
                 "ans_tpu_torch.bench_crossover", "ans_tpu_torch.constants",
-                "ans_tpu_torch.profile_idle", "ans_tpu_torch.probe"} <= set(
-                    names), names
+                "ans_tpu_torch.profile_idle", "ans_tpu_torch.probe",
+                "ans_tpu_torch.parallel",
+                "ans_tpu_torch.parallel.block_runtime"} <= set(names), names
         import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
@@ -239,9 +308,14 @@ def test_imports_without_jax():
         twice = np.repeat(np.arange(1 << 14), 2).astype(np.uint32)
         wide = np.arange(9000, dtype=np.uint32) * 5
         for name, v in (("ANS", twice), ("ANSsint-80", wide),
-                        ("ANSfold-8", wide)):
+                        ("ANSfold-8", wide), ("ANSmsb", x),
+                        ("ANSrfold-2", twice)):
             codec = models.get(name, device="cpu")
             assert (codec.decode(codec.encode(v), len(v)) == v).all()
+        from ans_tpu_torch.parallel import BlockCodec
+        for name in ("ANSfold-2", "ANSrfold-2"):
+            block = BlockCodec(name, 3, 32, device="cpu")
+            assert (block.decode(block.encode(x)) == x).all()
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in ("jax", "jaxlib", "ans_tpu"))
         assert not loaded, loaded
@@ -385,6 +459,63 @@ def test_fold_unmap_copy(fidelity):
         assert a.dtype == b.dtype
 
 
+_U32_EDGES = np.array([0, 1, 255, 256, 257, 511, 512, 513, (1 << 16) - 1,
+                       1 << 16, (1 << 16) + 1, (1 << 24) - 1, 1 << 24,
+                       (1 << 24) + 1, (1 << 31) - 1, 1 << 31,
+                       (1 << 32) - 1], dtype=np.uint32)
+
+
+def _u32_sample():
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 1 << 32, size=20000, dtype=np.uint64) >> (
+        rng.integers(0, 32, size=20000).astype(np.uint64))
+    return np.concatenate([_U32_EDGES, x.astype(np.uint32)])
+
+
+def test_msb_copies():
+    """msb_map over every bucket's edges, msb_exception_bytes and
+    msb_unmap_high over all 1280 buckets."""
+    x = _u32_sample()
+    np.testing.assert_array_equal(mappings.msb_map(x), jmappings.msb_map(x))
+    b = np.arange(constants.MSB_MAX_SIGMA, dtype=np.uint32)
+    for name in ("msb_exception_bytes", "msb_unmap_high"):
+        got, want = getattr(mappings, name)(b), getattr(jmappings, name)(b)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+
+
+@pytest.mark.parametrize("fidelity", range(1, 9))
+def test_fold_map_copies(fidelity):
+    x = _u32_sample()
+    for name in ("fold_exception_count", "fold_map"):
+        got = getattr(mappings, name)(x, fidelity)
+        want = getattr(jmappings, name)(x, fidelity)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+
+
+@pytest.mark.parametrize("fidelity", [1, 2, 5])
+@pytest.mark.parametrize("kind", ["zipf", "few", "ties", "one"])
+def test_craft_reorder_copies(fidelity, kind):
+    """The rfold reorder (wire: the header and the remap), taken and not
+    taken, with tied counts (ordered by value)."""
+    rng = np.random.default_rng(fidelity)
+    x = {"zipf": (rng.zipf(1.2, 30000) % 50000),
+         "few": rng.integers(0, 200, 5000),
+         "ties": np.repeat(rng.permutation(3000), 3),
+         "one": np.full(10, 7)}[kind].astype(np.uint32)
+    got, want = mappings.craft_reorder(x, fidelity), jmappings.craft_reorder(
+        x, fidelity)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert bytes(got[1]) == bytes(want[1])
+    counts = np.bincount(x)
+    a, b = (mappings.craft_reorder_from_counts(counts, fidelity),
+            jmappings.craft_reorder_from_counts(counts, fidelity))
+    assert (a[0] is None) == (b[0] is None) and bytes(a[1]) == bytes(b[1])
+    if a[0] is not None:
+        np.testing.assert_array_equal(a[0], b[0])
+
+
 def _byte_hists():
     rng = np.random.default_rng(12)
     one = np.zeros(256, np.uint64)
@@ -445,6 +576,27 @@ def test_idle_share_counts_overlap_once():
     assert r["ops_us"] == {"k3": 12.5, "copy": 15.0}
     with pytest.raises(RuntimeError, match="no device work"):
         profile_idle.idle_share(ev, "enc")
+
+
+def test_idle_share_splits_host_time():
+    """The host's time in a span: the outermost torch operations and CUDA
+    calls by name (a call inside an operation is not counted again), and
+    the rest; calls outside the span are left out."""
+    from ans_tpu_torch import profile_idle
+    ev = [{"cat": "user_annotation", "name": "enc", "ts": 0, "dur": 100},
+          {"cat": "kernel", "name": "k1", "ts": 10, "dur": 40},
+          {"cat": "cpu_op", "name": "aten::copy_", "ts": 10, "dur": 20},
+          {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 12,
+           "dur": 15},
+          {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 40,
+           "dur": 5},
+          {"cat": "cpu_op", "name": "aten::zeros", "ts": 60, "dur": 10},
+          {"cat": "cpu_op", "name": "aten::empty", "ts": 62, "dur": 3},
+          {"cat": "cpu_op", "name": "aten::item", "ts": 95, "dur": 10}]
+    h = profile_idle.idle_share(ev, "enc")["host_us"]
+    assert h["calls"] == {"aten::copy_": 20, "aten::zeros": 10,
+                          "cudaLaunchKernel": 5}
+    assert h["in_calls"] == 35 and h["outside_calls"] == 65
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -40,3 +40,31 @@ def test_fold_map_hist(datasets, name, fidelity):
 @pytest.mark.parametrize("fidelity", range(1, 9))
 def test_fold_map_hist_edges(fidelity):
     _check(EDGES, fidelity)
+
+
+def _check_msb(x: np.ndarray):
+    from ans_tpu.constants import MSB_MAX_SIGMA
+    from ans_tpu_torch.ops.mappings import msb_map_hist
+    jm, jk, jb, jh = mj.msb_map_hist(jnp.asarray(x), length=MSB_MAX_SIGMA)
+    m, k, low, h = msb_map_hist(torch.from_numpy(x.view(np.int32)),
+                                length=MSB_MAX_SIGMA)
+    np.testing.assert_array_equal(m.numpy().view(np.uint32), np.asarray(jm))
+    np.testing.assert_array_equal(k.numpy(), np.asarray(jk))
+    jb = np.asarray(jb).astype(np.int32)
+    np.testing.assert_array_equal(
+        low.numpy(), jb[:, 0] | (jb[:, 1] << 8) | (jb[:, 2] << 16))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+
+
+@pytest.mark.parametrize("name", ["zipf12", "zipf_large", "geometric",
+                                  "uniform_small", "wide", "tiny",
+                                  "single_sym"])
+def test_msb_map_hist(datasets, name):
+    """msb_map_hist (ANSmsb's device pass) equals mappings_jax's."""
+    _check_msb(datasets[name])
+
+
+def test_msb_map_hist_edges():
+    """Each bucket's bounds (x <= 256, 2^16, 2^24 map down a byte less)."""
+    more = np.array([257, (1 << 16) + 1, (1 << 24) + 1], dtype=np.uint32)
+    _check_msb(np.concatenate([EDGES, more]))

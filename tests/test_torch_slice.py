@@ -15,7 +15,10 @@ import pytest
 from ans_tpu.models import engine as ref_engine
 from ans_tpu.models.ans import AnsFold as RefAnsFold
 from ans_tpu.models.ans import AnsInt as RefAnsInt
+from ans_tpu.models.ans import AnsMsb as RefAnsMsb
+from ans_tpu.models.ans import AnsReorderFold as RefAnsReorderFold
 from ans_tpu.models.ans import AnsSint as RefAnsSint
+from ans_tpu.models.ans import AnsSmsb as RefAnsSmsb
 from ans_tpu.ops import escape as ref_escape
 from ans_tpu.reference_model.model import load_prelude
 from ans_tpu.utils.zipf import zipf as ref_zipf
@@ -93,11 +96,15 @@ def test_full_width_record():
 def test_grouped_full_width_record(rec):
     """The grouped path's full-width records: ANSfold-7 on zipf20 is a
     grouped frame, ANS on zipf20 takes the tail escape onto the pivot
-    search, ANS on dense22 is a grouped frame the escape declines."""
+    search, ANS on dense22 is a grouped frame the escape declines; ANSmsb
+    and ANSrfold-2 on zipf20 (phase 9 of chip_smoke.py) are value-order
+    frames."""
     assert rec["lanes"] == 4096 and ZIPF20["lanes"] == 4096
     want = {("zipf20", "ANSfold-7"): (True, 1 << 17),
             ("zipf20", "ANS"): (False, 1 << 22),
-            ("dense22", "ANS"): (True, 1 << 19)}
+            ("dense22", "ANS"): (True, 1 << 19),
+            ("zipf20", "ANSmsb"): (False, 1 << 12),
+            ("zipf20", "ANSrfold-2"): (False, 1 << 13)}
     assert (rec["grouped"], rec["M"]) == want[rec["input"], rec["method"]]
 
 
@@ -117,8 +124,10 @@ def test_card_inputs_are_the_reference_inputs():
 
 def test_registry():
     assert models.available() == sorted(
-        ["ANS"] + [f"ANSfold-{f}" for f in range(1, 9)]
+        ["ANS", "ANSmsb"] + [f"ANSfold-{f}" for f in range(1, 9)]
+        + [f"ANSrfold-{f}" for f in range(1, 9)]
         + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
+        + [f"ANSsmsb-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
         + ["vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS"])
     codec = models.get("ANSfold-3", device="cpu")
     assert codec.fidelity == 3 and codec.name == "ANSfold-3"
@@ -137,12 +146,29 @@ def test_registry_int_methods(name, h):
     assert (codec.name, codec.h_approx) == (ref.name, ref.h_approx)
 
 
-@pytest.mark.parametrize("name", ["ANSmsb", "ANSrfold-2", "ANSsmsb-5",
-                                  "vbytefse", "streamvbytehuffzero", "shuff",
+@pytest.mark.parametrize("name,ref", [
+    ("ANSmsb", lambda: RefAnsMsb()), ("ANSsmsb-5", lambda: RefAnsSmsb(5)),
+    ("ANSsmsb-320", lambda: RefAnsSmsb(320)),
+    ("ANSrfold-2", lambda: RefAnsReorderFold(2)),
+    ("ANSrfold-8", lambda: RefAnsReorderFold(8))])
+def test_registry_msb_and_rfold_methods(name, ref):
+    """ANSmsb, ANSsmsb-h and ANSrfold-f (they stood in
+    test_unported_names_raise until ported): name, h_approx and fidelity
+    equal to ans_tpu's codec of the name."""
+    codec = models.get(name, lanes=64, device="cpu")
+    want = ref()
+    assert (codec.name, codec.h_approx, codec.lanes) == (
+        want.name, want.h_approx, 64)
+    assert getattr(codec, "fidelity", None) == getattr(want, "fidelity",
+                                                       None)
+
+
+@pytest.mark.parametrize("name", ["vbytefse", "streamvbytehuffzero", "shuff",
                                   "pseudo_adaptive", "no-such-method"])
 def test_unported_names_raise(name):
     """(vbyte and streamvbyteANS stood here until the byte path was
-    ported; the host-codec composites took their place.)"""
+    ported, and ANSmsb, ANSsmsb-5 and ANSrfold-2 until this slice; the
+    host-codec composites took their place.)"""
     with pytest.raises(KeyError, match="ROADMAP"):
         models.get(name, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
