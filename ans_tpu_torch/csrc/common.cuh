@@ -104,6 +104,22 @@ __device__ __forceinline__ uint32_t encode_step(uint32_t& st, uint32_t f,
   return b0 | (b1 << 8) | (b2 << 16) | ((e0 + e1 + e2) << 24);
 }
 
+// The row of stream b in a batch's model array (ops/model_batch.py): the
+// i32 words of `Model` at models + stride * b.  A model the whole batch
+// shares is one row, read with stride 0.
+template <typename Model>
+__device__ __forceinline__ Model model_row(const int32_t* __restrict__ models,
+                                           int stride, int b) {
+  static_assert(sizeof(Model) % sizeof(int32_t) == 0, "a row of i32 words");
+  Model m;
+  int32_t* w = reinterpret_cast<int32_t*>(&m);
+  const int32_t* r = models + static_cast<int64_t>(stride) * b;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(Model) / sizeof(int32_t)); ++i)
+    w[i] = __ldg(r + i);
+  return m;
+}
+
 // Threads per block for a kernel that spreads S lanes over one block.
 inline int block_threads(int S) {
   if (S >= 1024) return 1024;

@@ -37,16 +37,29 @@
 // (ring_bytes = 0; the wrapper chooses).  Every read is checked against
 // the stream length.
 //
-// A launch decodes a batch of D streams that share the frame (the sections
-// of a blocked container; one stream is the batch of one): one block a
-// stream, each loading the tables into its own shared memory, reading its
-// own byte range [stream_off[b], stream_off[b + 1]) of the concatenated
-// payloads, its states and length n[b], and writing its (T, S) outputs.  A
-// stream with n = 0 reads and writes nothing.  The lockstep is per stream,
-// so the blocks run side by side, one an SM.
+// A launch decodes a batch of D streams, each under its own frame (the
+// blocks of a pseudo-adaptive container) or all under one (the sections of
+// a blocked container; one stream is the batch of one): one block a
+// stream, each reading its row of the model array (ops/model_batch.py:
+// where its tables lie in the concatenated ones, its sigma, log2m, NR and
+// NE; one row with stride 0 for a shared frame, every offset 0), loading
+// its tables into its own shared memory, reading its own byte range
+// [stream_off[b], stream_off[b + 1]) of the concatenated payloads, its
+// states and length n[b], and writing its (T, S) outputs.  A stream with
+// n = 0 reads and writes nothing.  The lockstep is per stream, so the
+// blocks run side by side.  Shared memory, the exception slots (NES) and
+// the ring are one choice for the launch, by the batch's largest frame; a
+// stream reads only the rounds of its own frame.
 #include "lockstep.cuh"
 
 namespace {
+
+// Stream b's row of the model array: the fields of ops/tables.py
+// DirectDevice, (offset, length) of each tensor, then each int.
+struct Model {
+  int32_t slot_sym_off, slot_sym_len, rows_off, rows_len, sigma, frame_size,
+      log2m, NR, NE;
+};
 
 template <int LPT, int NES, bool RING>
 __global__ void __launch_bounds__(1024)
@@ -54,8 +67,8 @@ decode_direct_kernel(const uint8_t* __restrict__ stream,
                      const int64_t* __restrict__ stream_off,
                      const int32_t* __restrict__ states,
                      const int4* __restrict__ rows_g,
-                     const uint16_t* __restrict__ slot_g, int sigma,
-                     int log2m, int NR, int NE,
+                     const uint16_t* __restrict__ slot_g,
+                     const int32_t* __restrict__ models, int model_stride,
                      const int64_t* __restrict__ n_of, int T, int S,
                      uint32_t ring_bytes, int32_t* __restrict__ out,
                      int32_t* __restrict__ err) {
@@ -65,6 +78,13 @@ decode_direct_kernel(const uint8_t* __restrict__ stream,
   // stream blockIdx.x of the batch: its bytes, states, length and outputs
   const int64_t n = n_of[blockIdx.x];
   if (n <= 0) return;  // an empty stream reads and writes nothing
+  // ... and its frame
+  const Model model =
+      lane::model_row<Model>(models, model_stride, blockIdx.x);
+  rows_g += model.rows_off;
+  slot_g += model.slot_sym_off;
+  const int sigma = model.sigma, log2m = model.log2m;
+  const int NR = model.NR, NE = NES > 0 ? model.NE : 0;
   const int64_t stream_len =
       stream_off[blockIdx.x + 1] - stream_off[blockIdx.x];
   stream += stream_off[blockIdx.x];
@@ -130,10 +150,10 @@ decode_direct_kernel(const uint8_t* __restrict__ stream,
 }
 
 struct Args {
-  const void *stream, *states, *rows, *slot_sym;
+  const void *stream, *states, *rows, *slot_sym, *models;
   const void *stream_off, *n;
-  int D;
-  int sigma, log2m, NR, NE, T, S;
+  int model_stride, D;
+  int table_bytes, NE, T, S;  // the batch's largest tables, NE
   uint32_t ring_bytes;
   void *out, *err;
   cudaStream_t cs;
@@ -142,8 +162,7 @@ struct Args {
 template <int LPT, int NES, bool RING>
 cudaError_t launch(const Args& a) {
   auto kernel = decode_direct_kernel<LPT, NES, RING>;
-  const size_t smem = a.ring_bytes + 16 * size_t(a.sigma) +
-                      2 * (size_t(1) << a.log2m);
+  const size_t smem = a.ring_bytes + size_t(a.table_bytes);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -155,7 +174,8 @@ cudaError_t launch(const Args& a) {
       static_cast<const int64_t*>(a.stream_off),
       static_cast<const int32_t*>(a.states),
       static_cast<const int4*>(a.rows),
-      static_cast<const uint16_t*>(a.slot_sym), a.sigma, a.log2m, a.NR, a.NE,
+      static_cast<const uint16_t*>(a.slot_sym),
+      static_cast<const int32_t*>(a.models), a.model_stride,
       static_cast<const int64_t*>(a.n), a.T, a.S, a.ring_bytes,
       static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
   return cudaGetLastError();
@@ -172,28 +192,35 @@ cudaError_t launch_lpt(const Args& a) {
 
 // stream: the D streams' bytes, stream b at [stream_off[b], stream_off[b +
 // 1]) (stream_off: (D + 1,) i64 device array; each stream at any address and
-// shorter than 2^31 bytes); states: (D, S) i32; rows: (sigma, 4) i32 rows
-// [freq, base, high, nb]; slot_sym: (2^log2m,) u16; n: (D,) i64 device
+// shorter than 2^31 bytes); states: (D, S) i32; rows: the streams' (sigma,
+// 4) i32 rows [freq, base, high, nb], slot_sym: their (2^log2m,) u16, each
+// table after the other; models: the streams' rows of struct Model (i32),
+// stream b's at models + model_stride * b (stride 0: one row for all);
+// table_bytes: the largest 16 sigma + 2^(log2m + 1) of the rows; NR, NE: the
+// largest renorm and exception rounds of the rows; n: (D,) i64 device
 // array, the positions of each stream; out: (D, T, S) i32; err: one i32, set
 // to 1 when a read passes the end of its stream.  ring_bytes: 0 for the
-// instance on global loads, else the size of the shared-memory ring, a power
-// of two >= 2 * S * (NR + NE) + 16.  Returns the launch's cudaError_t.
+// instance on global loads, else the size of the shared-memory ring, a
+// power of two >= 2 * S * (NR + NE) + 16.  Returns the launch's
+// cudaError_t.
 extern "C" int decode_direct(const void* stream, const void* stream_off,
                              const void* states, const void* rows,
-                             const void* slot_sym, int sigma, int log2m,
-                             int NR, int NE, const void* n, int D, int T,
-                             int S, int ring_bytes, void* out, void* err,
+                             const void* slot_sym, const void* models,
+                             int model_stride, int table_bytes, int NR,
+                             int NE, const void* n, int D, int T, int S,
+                             int ring_bytes, void* out, void* err,
                              void* cuda_stream) {
   if (T == 0 || D == 0) return 0;
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
       (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) || D < 0 ||
-      (S > 1024 && S % 1024))
+      (S > 1024 && S % 1024) || model_stride < 0 || table_bytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
-  const Args a{stream, states, rows, slot_sym, stream_off, n, D, sigma,
-               log2m, NR, NE, T, S, static_cast<uint32_t>(ring_bytes), out,
-               err, static_cast<cudaStream_t>(cuda_stream)};
+  const Args a{stream, states, rows, slot_sym, models, stream_off, n,
+               model_stride, D, table_bytes, NE, T, S,
+               static_cast<uint32_t>(ring_bytes), out, err,
+               static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
     case 1: e = launch_lpt<1>(a); break;

@@ -44,16 +44,33 @@
 // = 0; the wrapper chooses both).  Every read is checked against the
 // stream length.
 //
-// A launch decodes a batch of D streams that share the frame (the sections
-// of a blocked container; one stream is the batch of one): one block a
-// stream, each loading the tables into its own shared memory, reading its
-// own byte range [stream_off[b], stream_off[b + 1]) of the concatenated
-// payloads, its states and length n[b], and writing its (T, S) outputs.  A
-// stream with n = 0 reads and writes nothing.  The lockstep is per stream,
-// so the blocks run side by side, one an SM.
+// A launch decodes a batch of D streams, each under its own frame (the
+// blocks of a pseudo-adaptive container) or all under one (the sections of
+// a blocked container; one stream is the batch of one): one block a
+// stream, each reading its row of the model array (ops/model_batch.py:
+// where its tables lie in the concatenated ones, its sigma, log2m, NR, NE
+// and bucket shift and levels; one row with stride 0 for a shared frame,
+// every offset 0), loading its tables into its own shared memory, reading
+// its own byte range [stream_off[b], stream_off[b + 1]) of the
+// concatenated payloads, its states and length n[b], and writing its
+// (T, S) outputs.  A stream with n = 0 reads and writes nothing.  The
+// lockstep is per stream, so the blocks run side by side.  Shared memory,
+// the exception slots (NES), the ring and whether the per-rank tables go
+// to shared memory are one choice for the launch, by the batch's largest
+// frame; a stream reads only the rounds of its own frame.
 #include "lockstep.cuh"
 
 namespace {
+
+// Stream b's row of the model array: the fields of ops/tables.py
+// GroupedDecDevice, (offset, length) of each tensor, then each int
+// (table_len 0: the rank is the value; nb_len 0: the frame has no
+// exception bytes).
+struct Model {
+  int32_t groups_off, groups_len, bases_off, bases_len, table_off, table_len,
+      nb_off, nb_len, buckets_off, buckets_len, depth, sigma, frame_size,
+      log2m, NR, NE, shift, levels;
+};
 
 template <int LPT, int NES, bool RING, bool SMEM_TABLE>
 __global__ void __launch_bounds__(1024)
@@ -64,8 +81,8 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream,
                       const int32_t* __restrict__ bases_g,
                       const uint16_t* __restrict__ buckets_g,
                       const int32_t* __restrict__ table_g,
-                      const uint8_t* __restrict__ nb_g, int NG, int levels,
-                      int shift, int sigma, int log2m, int NR, int NE,
+                      const uint8_t* __restrict__ nb_g,
+                      const int32_t* __restrict__ models, int model_stride,
                       const int64_t* __restrict__ n_of, int T, int S,
                       uint32_t ring_bytes,
                       int32_t* __restrict__ out, int32_t* __restrict__ err) {
@@ -77,13 +94,24 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream,
   // stream blockIdx.x of the batch: its bytes, states, length and outputs
   const int64_t n = n_of[blockIdx.x];
   if (n <= 0) return;  // an empty stream reads and writes nothing
+  // ... and its frame
+  const Model model =
+      lane::model_row<Model>(models, model_stride, blockIdx.x);
+  groups_g += model.groups_off;
+  bases_g += model.bases_off;
+  buckets_g += model.buckets_off;
+  table_g += model.table_off;
+  nb_g += model.nb_off;
+  const int NG = model.groups_len, levels = model.levels;
+  const int shift = model.shift, sigma = model.sigma, log2m = model.log2m;
+  const int NR = model.NR, NE = NES > 0 ? model.NE : 0;
   const int64_t stream_len =
       stream_off[blockIdx.x + 1] - stream_off[blockIdx.x];
   stream += stream_off[blockIdx.x];
   states += static_cast<int64_t>(blockIdx.x) * S;
   out += static_cast<int64_t>(blockIdx.x) * T * S;
   const uint32_t M = 1u << log2m;
-  const bool has_table = table_g != nullptr;
+  const bool has_table = model.table_len > 0;
   const int nbounds = NG + (1 << levels);  // boundaries a probe may touch
   const int nbuckets = static_cast<int>((M - 1) >> shift) + 1;
   uint8_t* ring = reinterpret_cast<uint8_t*>(smem);            // ring_bytes
@@ -102,10 +130,12 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream,
     if (has_table)
       for (int i = threadIdx.x; i < sigma; i += blockDim.x)
         table_s[i] = table_g[i];
-    if constexpr (NES > 0)
+    if constexpr (NES > 0)  // zero for a frame without exception bytes
       for (int i = threadIdx.x; i < sigma; i += blockDim.x)
-        nb_s[i] = static_cast<uint8_t>(
-            lockstep::FIELD_BITS * min(static_cast<int>(nb_g[i]), NE));
+        nb_s[i] = NE > 0 ? static_cast<uint8_t>(
+                               lockstep::FIELD_BITS *
+                               min(static_cast<int>(nb_g[i]), NE))
+                         : uint8_t(0);
   }
   lockstep::Stream<RING> src;
   src.begin(stream, static_cast<uint32_t>(stream_len),
@@ -164,8 +194,9 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream,
         // rounds the lane reads in
         const uint32_t sh =
             SMEM_TABLE ? nb_s[rank]
-                       : lockstep::FIELD_BITS *
-                             min(static_cast<int>(__ldg(nb_g + rank)), NE);
+            : NE > 0   ? lockstep::FIELD_BITS *
+                           min(static_cast<int>(__ldg(nb_g + rank)), NE)
+                       : 0u;
         need[1][l] = valid ? 0x00100401u & ~(~0u << sh) : 0u;
       }
       val[l] = !has_table   ? rank
@@ -184,32 +215,19 @@ decode_grouped_kernel(const uint8_t* __restrict__ stream,
 
 struct Args {
   const void *stream, *states, *groups, *bases, *buckets, *table, *nb;
-  const void *stream_off, *n;
-  int D;
-  int NG, levels, shift, sigma, log2m, NR, NE, T, S;
+  const void *models, *stream_off, *n;
+  int model_stride, D;
+  int table_bytes, NE, T, S;  // the batch's largest tables, NE
   uint32_t ring_bytes;
   bool smem_table;
   void *out, *err;
   cudaStream_t cs;
 };
 
-// Shared bytes of the tables: group rows, boundaries, the per-rank table
-// and the buckets (2-byte aligned behind the 4-byte words), then nb.
-size_t table_bytes(const Args& a) {
-  const size_t rank_table =
-      a.smem_table ? (a.table ? sizeof(int32_t) * size_t(a.sigma) : 0) +
-                         (a.NE > 0 ? size_t(a.sigma) : 0)
-                   : 0;
-  const size_t nbuckets = (((size_t(1) << a.log2m) - 1) >> a.shift) + 1;
-  return 16 * size_t(a.NG) +
-         sizeof(int32_t) * (size_t(a.NG) + (size_t(1) << a.levels)) +
-         2 * nbuckets + rank_table;
-}
-
 template <int LPT, int NES, bool RING, bool SMEM_TABLE>
 cudaError_t launch(const Args& a) {
   auto kernel = decode_grouped_kernel<LPT, NES, RING, SMEM_TABLE>;
-  const size_t smem = a.ring_bytes + table_bytes(a);
+  const size_t smem = a.ring_bytes + size_t(a.table_bytes);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -224,9 +242,10 @@ cudaError_t launch(const Args& a) {
       static_cast<const int32_t*>(a.bases),
       static_cast<const uint16_t*>(a.buckets),
       static_cast<const int32_t*>(a.table),
-      static_cast<const uint8_t*>(a.nb), a.NG, a.levels, a.shift, a.sigma,
-      a.log2m, a.NR, a.NE, static_cast<const int64_t*>(a.n), a.T, a.S,
-      a.ring_bytes, static_cast<int32_t*>(a.out),
+      static_cast<const uint8_t*>(a.nb),
+      static_cast<const int32_t*>(a.models), a.model_stride,
+      static_cast<const int64_t*>(a.n), a.T, a.S, a.ring_bytes,
+      static_cast<int32_t*>(a.out),
       static_cast<int32_t*>(a.err));
   return cudaGetLastError();
 }
@@ -249,37 +268,42 @@ cudaError_t launch_lpt(const Args& a) {
 
 // stream: the D streams' bytes, stream b at [stream_off[b], stream_off[b +
 // 1]) (stream_off: (D + 1,) i64 device array; each stream at any address and
-// shorter than 2^31 bytes); states: (D, S) i32; groups: (NG, 4) i32 rows [f,
-// magic, slot0, rank0]; bases: at least NG i32, the groups' first slots in
-// order; buckets: ((2^log2m - 1 >> shift) + 1,) u16, the group holding each
-// bucket's first slot, from which at most 2^levels - 1 further groups begin
-// inside the bucket; table: (sigma,) i32 per-rank value or high part, or
-// null (the rank is the value); nb: (sigma,) u8 exception bytes per rank,
-// read when NE > 0; n: (D,) i64 device array, the positions of each stream;
-// out: (D, T, S) i32; err: one i32, set to 1 when a read passes the end of
-// its stream.  ring_bytes: 0 for the instance on global loads, else the size
-// of the shared-memory ring, a power of two >= 2 * S * (NR + NE) + 16.
-// smem_table: whether the per-rank table and nb are staged in shared memory.
-// Returns the launch's cudaError_t.
+// shorter than 2^31 bytes); states: (D, S) i32; the streams' tables, each
+// after the other: groups (NG, 4) i32 rows [f, magic, slot0, rank0]; bases,
+// at least NG i32, the groups' first slots in order; buckets ((2^log2m - 1
+// >> shift) + 1,) u16, the group holding each bucket's first slot, from
+// which at most 2^levels - 1 further groups begin inside the bucket; table
+// (sigma,) i32 per-rank value or high part, or none (the rank is the value);
+// nb (sigma,) u8 exception bytes per rank, where the frame's NE > 0;
+// models: the streams' rows of struct Model (i32), stream b's at models +
+// model_stride * b (stride 0: one row for all); table_bytes: the largest
+// shared memory a row's tables take in this launch's layout; NR, NE: the
+// largest renorm and exception rounds of the rows; n: (D,) i64 device
+// array, the positions of each stream; out: (D, T, S) i32; err: one i32,
+// set to 1 when a read passes the end of its stream.  ring_bytes: 0 for the
+// instance on global loads, else the size of the shared-memory ring, a
+// power of two >= 2 * S * (NR + NE) + 16.  smem_table: whether the per-rank
+// tables are staged in shared memory.  Returns the launch's cudaError_t.
 extern "C" int decode_grouped(const void* stream, const void* stream_off,
                               const void* states, const void* groups,
                               const void* bases, const void* buckets,
-                              const void* table, const void* nb, int NG,
-                              int levels, int shift, int sigma, int log2m,
-                              int NR, int NE, const void* n, int D, int T,
-                              int S, int ring_bytes, int smem_table,
-                              void* out, void* err, void* cuda_stream) {
+                              const void* table, const void* nb,
+                              const void* models, int model_stride,
+                              int table_bytes, int NR, int NE, const void* n,
+                              int D, int T, int S, int ring_bytes,
+                              int smem_table, void* out, void* err,
+                              void* cuda_stream) {
   if (T == 0 || D == 0) return 0;
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
       (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) || D < 0 ||
-      (S > 1024 && S % 1024) || NG < 1 || levels < 0 || levels > 12 ||
-      shift < 0 || shift > log2m || (NE > 0 && nb == nullptr))
+      (S > 1024 && S % 1024) || model_stride < 0 || table_bytes < 0 ||
+      (NE > 0 && nb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
-  const Args a{stream, states, groups, bases, buckets, table, nb,
-               stream_off, n, D, NG, levels, shift, sigma, log2m, NR, NE, T,
-               S, static_cast<uint32_t>(ring_bytes), smem_table != 0, out,
+  const Args a{stream, states, groups, bases, buckets, table, nb, models,
+               stream_off, n, model_stride, D, table_bytes, NE, T, S,
+               static_cast<uint32_t>(ring_bytes), smem_table != 0, out,
                err, static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {

@@ -42,16 +42,29 @@
 // the wrapper chooses).  Every read is checked against the stream length:
 // a corrupt blob sets the error flag instead of reading out of bounds.
 //
-// A launch decodes a batch of D streams that share the frame (the sections
-// of a blocked container; one stream is the batch of one): one block a
-// stream, each loading the tables into its own shared memory, reading its
-// own byte range [stream_off[b], stream_off[b + 1]) of the concatenated
-// payloads, its states and length n[b], and writing its (T, S) outputs.  A
-// stream with n = 0 reads and writes nothing.  The lockstep is per stream,
-// so the blocks run side by side, one an SM.
+// A launch decodes a batch of D streams, each under its own frame (the
+// blocks of a pseudo-adaptive container) or all under one (the sections of
+// a blocked container; one stream is the batch of one): one block a
+// stream, each reading its row of the model array (ops/model_batch.py:
+// where its tables lie in the concatenated ones, its depth, sigma, log2m,
+// NR and NE; one row with stride 0 for a shared frame, every offset 0),
+// loading its tables into its own shared memory, reading its own byte
+// range [stream_off[b], stream_off[b + 1]) of the concatenated payloads,
+// its states and length n[b], and writing its (T, S) outputs.  A stream
+// with n = 0 reads and writes nothing.  The lockstep is per stream, so the
+// blocks run side by side.  Shared memory, the exception slots (NES) and
+// the ring are one choice for the launch, by the batch's largest frame; a
+// stream reads only the rounds of its own frame.
 #include "lockstep.cuh"
 
 namespace {
+
+// Stream b's row of the model array: the fields of ops/tables.py
+// SearchDevice, (offset, length) of each tensor, then each int.
+struct Model {
+  int32_t bases_off, bases_len, high_off, high_len, nb_off, nb_len, depth,
+      sigma, frame_size, log2m, NR, NE;
+};
 
 template <int LPT, int NES, bool RING>
 __global__ void __launch_bounds__(1024)
@@ -60,8 +73,8 @@ decode_search_kernel(const uint8_t* __restrict__ stream,
                      const int32_t* __restrict__ states,
                      const int32_t* __restrict__ bases_g,
                      const int32_t* __restrict__ high_g,
-                     const int32_t* __restrict__ nb_g, int depth, int sigma,
-                     int log2m, int NR, int NE,
+                     const int32_t* __restrict__ nb_g,
+                     const int32_t* __restrict__ models, int model_stride,
                      const int64_t* __restrict__ n_of, int T, int S,
                      uint32_t ring_bytes, int32_t* __restrict__ out,
                      int32_t* __restrict__ err) {
@@ -73,6 +86,14 @@ decode_search_kernel(const uint8_t* __restrict__ stream,
   // stream blockIdx.x of the batch: its bytes, states, length and outputs
   const int64_t n = n_of[blockIdx.x];
   if (n <= 0) return;  // an empty stream reads and writes nothing
+  // ... and its frame
+  const Model model =
+      lane::model_row<Model>(models, model_stride, blockIdx.x);
+  bases_g += model.bases_off;
+  high_g += model.high_off;
+  nb_g += model.nb_off;
+  const int depth = model.depth, sigma = model.sigma, log2m = model.log2m;
+  const int NR = model.NR, NE = NES > 0 ? model.NE : 0;
   const int64_t stream_len =
       stream_off[blockIdx.x + 1] - stream_off[blockIdx.x];
   stream += stream_off[blockIdx.x];
@@ -156,10 +177,10 @@ decode_search_kernel(const uint8_t* __restrict__ stream,
 }
 
 struct Args {
-  const void *stream, *states, *bases, *high, *nb;
+  const void *stream, *states, *bases, *high, *nb, *models;
   const void *stream_off, *n;
-  int D;
-  int depth, sigma, log2m, NR, NE, T, S;
+  int model_stride, D;
+  int depth, sigma, NE, T, S;  // the batch's largest depth and sigma, NE
   uint32_t ring_bytes;
   void *out, *err;
   cudaStream_t cs;
@@ -183,7 +204,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const int32_t*>(a.states),
       static_cast<const int32_t*>(a.bases),
       static_cast<const int32_t*>(a.high), static_cast<const int32_t*>(a.nb),
-      a.depth, a.sigma, a.log2m, a.NR, a.NE,
+      static_cast<const int32_t*>(a.models), a.model_stride,
       static_cast<const int64_t*>(a.n), a.T, a.S, a.ring_bytes,
       static_cast<int32_t*>(a.out), static_cast<int32_t*>(a.err));
   return cudaGetLastError();
@@ -200,16 +221,21 @@ cudaError_t launch_lpt(const Args& a) {
 
 // stream: the D streams' bytes, stream b at [stream_off[b], stream_off[b +
 // 1]) (stream_off: (D + 1,) i64 device array; each stream at any address and
-// shorter than 2^31 bytes); states: (D, S) i32; bases: (2^depth + 1,) i32;
-// high/nb: (sigma,) i32; n: (D,) i64 device array, the positions of each
-// stream; out: (D, T, S) i32; err: one i32, set to 1 when a read passes the
-// end of its stream.  ring_bytes: 0 for the instance on global loads, else
-// the size of the shared-memory ring, a power of two >= 2 * S * (NR + NE) +
-// 16.  Returns the launch's cudaError_t.
+// shorter than 2^31 bytes); states: (D, S) i32; bases: the streams' (2^depth
+// + 1,) i32 search bases, high/nb: their (sigma,) i32 tables, each table
+// after the other; models: the streams' rows of struct Model (i32), stream
+// b's at models + model_stride * b (stride 0: one row for all); max_depth,
+// max_sigma: the largest depth and sigma of the rows; NR, NE: the largest
+// renorm and exception rounds of the rows; n: (D,) i64 device array, the
+// positions of each stream; out: (D, T, S) i32; err: one i32, set to 1 when
+// a read passes the end of its stream.  ring_bytes: 0 for the instance on
+// global loads, else the size of the shared-memory ring, a power of two >=
+// 2 * S * (NR + NE) + 16.  Returns the launch's cudaError_t.
 extern "C" int decode_search(const void* stream, const void* stream_off,
                              const void* states, const void* bases,
-                             const void* high, const void* nb, int depth,
-                             int sigma, int log2m, int NR, int NE,
+                             const void* high, const void* nb,
+                             const void* models, int model_stride,
+                             int max_depth, int max_sigma, int NR, int NE,
                              const void* n, int D, int T, int S,
                              int ring_bytes, void* out, void* err,
                              void* cuda_stream) {
@@ -217,12 +243,14 @@ extern "C" int decode_search(const void* stream, const void* stream_off,
   if (NR < 0 || NR > 3 || NE < 0 || NE > 3 || ring_bytes < 0 ||
       (ring_bytes & (ring_bytes - 1)) ||
       (ring_bytes && ring_bytes < 2 * S * (NR + NE) + 16) || D < 0 ||
-      (S > 1024 && S % 1024))
+      (S > 1024 && S % 1024) || model_stride < 0 || max_depth < 0 ||
+      max_depth > 24 || max_sigma < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpt = S > 1024 ? S / 1024 : 1;
-  const Args a{stream, states, bases, high, nb, stream_off, n, D, depth,
-               sigma, log2m, NR, NE, T, S, static_cast<uint32_t>(ring_bytes),
-               out, err, static_cast<cudaStream_t>(cuda_stream)};
+  const Args a{stream, states, bases, high, nb, models, stream_off, n,
+               model_stride, D, max_depth, max_sigma, NE, T, S,
+               static_cast<uint32_t>(ring_bytes), out, err,
+               static_cast<cudaStream_t>(cuda_stream)};
   cudaError_t e;
   switch (lpt) {
     case 1: e = launch_lpt<1>(a); break;

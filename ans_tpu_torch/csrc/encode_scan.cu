@@ -32,13 +32,24 @@
 // Division keeps the TPU kernel's magic (an exact `__umulhi` sequence)
 // rather than the card's slow 32-bit divide.
 //
-// A launch scans a batch of D streams that share one table (the sections
-// of a blocked container; one stream is the batch of one): the grid is
-// (S / 32, D), and stream d's blocks read its symbols and its own length
-// n[d] and write its words and states.
+// A launch scans a batch of D streams, each under its own table (the
+// blocks of a pseudo-adaptive container) or all under one (the sections of
+// a blocked container; one stream is the batch of one): the grid is
+// (S / 32, D), and stream d's blocks read its row of the model array
+// (ops/model_batch.py: where its table lies in the concatenated rows, its
+// sigma and log2m; one row with stride 0 for a shared table, every offset
+// 0), its symbols and its own length n[d], and write its words and states.
+// Whether the tables go to shared memory is one choice for the launch, by
+// the batch's largest.
 #include "encode_ahead.cuh"
 
 namespace {
+
+// Stream d's row of the model array: the fields of ops/tables.py
+// EncDevice, (offset, length) of each tensor, then each int.
+struct Model {
+  int32_t words_off, words_len, frame_size, log2m;
+};
 
 // the rows of the table that fit in shared memory beside the tile
 constexpr int SMEM_TABLE_ROWS = 12288;
@@ -85,13 +96,20 @@ struct Find {
 
 template <bool SMEM_TABLE>
 __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
-                                   const int4* __restrict__ table, int sigma,
+                                   const int4* __restrict__ table,
+                                   const int32_t* __restrict__ models,
+                                   int model_stride,
                                    const int64_t* __restrict__ n_of, int T,
-                                   int S, int log2m,
-                                   int32_t* __restrict__ packed,
+                                   int S, int32_t* __restrict__ packed,
                                    int32_t* __restrict__ states,
                                    int32_t* __restrict__ err) {
-  // stream blockIdx.y of the batch: its symbols, length, words and states
+  // stream blockIdx.y of the batch: its table, symbols, length, words and
+  // states
+  const Model model =
+      lane::model_row<Model>(models, model_stride, blockIdx.y);
+  table += model.words_off;
+  const int sigma = model.words_len;
+  const int log2m = model.log2m;
   const int64_t at = static_cast<int64_t>(blockIdx.y) * T * S;
   syms += at;
   packed += at;
@@ -109,9 +127,9 @@ __global__ void encode_scan_kernel(const int32_t* __restrict__ syms,
 }
 
 template <bool SMEM_TABLE>
-int launch(const void* syms, const void* table, int sigma, const void* n,
-           int D, int T, int S, int log2m, void* packed, void* states,
-           void* err, cudaStream_t stream) {
+int launch(const void* syms, const void* table, const void* models,
+           int model_stride, int sigma, const void* n, int D, int T, int S,
+           void* packed, void* states, void* err, cudaStream_t stream) {
   const dim3 blocks((S + ahead::L - 1) / ahead::L, D);
   const size_t smem =
       16 * (size_t(ahead::TILE_ROWS) + (SMEM_TABLE ? size_t(sigma) : 0));
@@ -123,28 +141,33 @@ int launch(const void* syms, const void* table, int sigma, const void* n,
   }
   encode_scan_kernel<SMEM_TABLE><<<blocks, ahead::THREADS, smem, stream>>>(
       static_cast<const int32_t*>(syms), static_cast<const int4*>(table),
-      sigma, static_cast<const int64_t*>(n), T, S, log2m,
-      static_cast<int32_t*>(packed),
+      static_cast<const int32_t*>(models), model_stride,
+      static_cast<const int64_t*>(n), T, S, static_cast<int32_t*>(packed),
       static_cast<int32_t*>(states), static_cast<int32_t*>(err));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// syms: (D, T, S) i32; table: (sigma, 4) i32 rows [freq, base, magic, 0];
-// n: (D,) i64 device array, the positions of each stream; packed: (D, T, S)
-// i32 out; states: (D, S) i32 out; err: one i32, set to 1 when a symbol lies
-// outside the table.  D <= 65535.  Returns the launch's cudaError_t.
-extern "C" int encode_scan(const void* syms, const void* table, int sigma,
-                           const void* n, int D, int T, int S, int log2m,
+// syms: (D, T, S) i32; table: the streams' (sigma, 4) i32 rows [freq,
+// base, magic, 0], one table after the other; models: the streams' rows of
+// struct Model (i32), stream d's at models + model_stride * d (stride 0: one
+// row for all); max_sigma: the largest words_len of the rows; n: (D,) i64
+// device array, the positions of each stream; packed: (D, T, S) i32 out;
+// states: (D, S) i32 out; err: one i32, set to 1 when a symbol lies outside
+// its stream's table.  D <= 65535.  Returns the launch's cudaError_t.
+extern "C" int encode_scan(const void* syms, const void* table,
+                           const void* models, int model_stride,
+                           int max_sigma, const void* n, int D, int T, int S,
                            void* packed, void* states, void* err,
                            void* stream) {
   if (S == 0 || D == 0) return 0;
-  if (D < 0 || D > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 0 || D > 65535 || model_stride < 0 || max_sigma < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return sigma <= SMEM_TABLE_ROWS
-             ? launch<true>(syms, table, sigma, n, D, T, S, log2m, packed,
-                            states, err, s)
-             : launch<false>(syms, table, sigma, n, D, T, S, log2m, packed,
-                             states, err, s);
+  return max_sigma <= SMEM_TABLE_ROWS
+             ? launch<true>(syms, table, models, model_stride, max_sigma, n,
+                            D, T, S, packed, states, err, s)
+             : launch<false>(syms, table, models, model_stride, max_sigma, n,
+                             D, T, S, packed, states, err, s);
 }

@@ -33,12 +33,24 @@
 // through __ldg.  The tables stay NG-sized: no per-rank freq/base table is
 // built.
 //
-// A launch scans a batch of D streams that share the tables, as K1 does:
-// the grid is (S / 32, D), stream d's blocks reading its inputs and length
-// n[d] and writing its words and states.
+// A launch scans a batch of D streams, each under its own tables or all
+// under one set, as K1 does: the grid is (S / 32, D), stream d's blocks
+// reading its row of the model array (ops/model_batch.py: where its group
+// rows, rank boundaries and rank_of lie in the concatenated tables, its
+// depth, sigma and log2m), its inputs and length n[d] and writing its words
+// and states.  The shared memory of a launch holds the batch's largest
+// group table.
 #include "encode_ahead.cuh"
 
 namespace {
+
+// Stream d's row of the model array: the fields of ops/tables.py
+// GroupedEncDevice, (offset, length) of each tensor, then each int
+// (rank_of_off -1: the stream's inputs are ranks).
+struct Model {
+  int32_t groups_off, groups_len, bases_off, bases_len, rank_of_off,
+      rank_of_len, depth, sigma, frame_size, log2m;
+};
 
 // The lookup of one position: its symbol or rank, then its row.
 struct Find {
@@ -116,14 +128,38 @@ struct Find {
   }
 };
 
-__global__ void encode_scan_grouped_kernel(
+// Blocks an SM should hold: 1440 threads, five blocks of THREADS = 288,
+// as many as the tile and a group table leave shared memory for.  The
+// bound holds a thread to 40 registers: at 42 (the model row's fields in
+// registers) a warp takes one more allocation granule and an SM holds four
+// blocks (32 sections of ANSfold-7 over zipf20, NVIDIA H100 80GB HBM3,
+// 700 W: 289 us a launch at 42 registers, 268 at 40 with 8 bytes spilled).
+constexpr int MIN_BLOCKS = 1440 / ahead::THREADS > 0 ? 1440 / ahead::THREADS
+                                                     : 1;
+
+__global__ void __launch_bounds__(ahead::THREADS, MIN_BLOCKS)
+encode_scan_grouped_kernel(
     const int32_t* __restrict__ syms, const int4* __restrict__ groups_g,
     const int32_t* __restrict__ bases_g, const int32_t* __restrict__ rank_of,
-    int64_t n_rank_of, int NG, int depth, int sigma,
-    const int64_t* __restrict__ n_of, int T, int S, int log2m,
+    const int32_t* __restrict__ models, int model_stride,
+    const int64_t* __restrict__ n_of, int T, int S,
     int32_t* __restrict__ packed, int32_t* __restrict__ states,
     int32_t* __restrict__ err) {
-  // stream blockIdx.y of the batch: its inputs, length, words and states
+  // stream blockIdx.y of the batch: its tables, inputs, length, words and
+  // states
+  const Model model =
+      lane::model_row<Model>(models, model_stride, blockIdx.y);
+  groups_g += model.groups_off;
+  bases_g += model.bases_off;
+  const int NG = model.groups_len;
+  const int depth = model.depth;
+  const int sigma = model.sigma;
+  const int log2m = model.log2m;
+  const int64_t n_rank_of = model.rank_of_len;
+  if (model.rank_of_off < 0)
+    rank_of = nullptr;
+  else
+    rank_of += model.rank_of_off;
   const int64_t at = static_cast<int64_t>(blockIdx.y) * T * S;
   syms += at;
   packed += at;
@@ -143,20 +179,29 @@ __global__ void encode_scan_grouped_kernel(
 
 }  // namespace
 
-// syms: (D, T, S) i32 ranks, or symbol ids when rank_of (n_rank_of i32
-// entries) is not null; groups: (NG, 4) i32 rows [f, magic, slot0, rank0];
-// bases: (2^depth + 1,) i32 group rank boundaries padded with sigma; n: (D,)
-// i64 device array, the positions of each stream; packed: (D, T, S) i32
-// out; states: (D, S) i32 out; err: one i32, set to 1 when a symbol or a
-// rank lies outside the tables.  D <= 65535.  Returns the cudaError_t.
+// syms: (D, T, S) i32 ranks, or symbol ids for a stream whose row has a
+// rank_of (rank_of_len i32 entries); groups: the streams' (NG, 4) i32 rows
+// [f, magic, slot0, rank0], bases: their (2^depth + 1,) i32 group rank
+// boundaries padded with sigma, rank_of: their symbol -> rank maps, each
+// table after the other (rank_of null when no stream has one); models: the
+// streams' rows of struct Model (i32), stream d's at models + model_stride
+// * d (stride 0: one row for all); max_groups / max_depth: the largest
+// groups_len and depth of the rows; n: (D,) i64 device array, the positions
+// of each stream; packed: (D, T, S) i32 out; states: (D, S) i32 out; err:
+// one i32, set to 1 when a symbol or a rank lies outside its stream's
+// tables.  D <= 65535.  Returns the cudaError_t.
 extern "C" int encode_scan_grouped(const void* syms, const void* groups,
                                    const void* bases, const void* rank_of,
-                                   int64_t n_rank_of, int NG, int depth,
-                                   int sigma, const void* n, int D, int T,
-                                   int S, int log2m, void* packed,
-                                   void* states, void* err, void* stream) {
+                                   const void* models, int model_stride,
+                                   int max_groups, int max_depth,
+                                   const void* n, int D, int T, int S,
+                                   void* packed, void* states, void* err,
+                                   void* stream) {
   if (S == 0 || D == 0) return 0;
-  if (D < 0 || D > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 0 || D > 65535 || model_stride < 0 || max_groups < 0 ||
+      max_depth < 0 || max_depth > 24)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int NG = max_groups, depth = max_depth;
   const int threads = ahead::THREADS;
   const dim3 blocks((S + ahead::L - 1) / ahead::L, D);
   const size_t smem =
@@ -172,9 +217,9 @@ extern "C" int encode_scan_grouped(const void* syms, const void* groups,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(syms), static_cast<const int4*>(groups),
       static_cast<const int32_t*>(bases),
-      static_cast<const int32_t*>(rank_of), n_rank_of, NG, depth, sigma,
-      static_cast<const int64_t*>(n), T, S, log2m,
-      static_cast<int32_t*>(packed), static_cast<int32_t*>(states),
-      static_cast<int32_t*>(err));
+      static_cast<const int32_t*>(rank_of),
+      static_cast<const int32_t*>(models), model_stride,
+      static_cast<const int64_t*>(n), T, S, static_cast<int32_t*>(packed),
+      static_cast<int32_t*>(states), static_cast<int32_t*>(err));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,10 @@ profile_idle.py), made with NumPy from fixed seeds.
   * dense22: every value of 0..2^16-1 (the even ones twice) tiled over
              n/2 values, then n/2 Zipf(1.5) draws over the same range
              (seed 8): tail frequencies alternating 1/2 make the tail
-             escape decline, so ANS codes a 2^16-symbol grouped frame.
+             escape decline, so ANS codes a 2^16-symbol grouped frame;
+  * zipf125: Zipf(1.25) over 2^28 values less one (seed 42), drawn by
+             `zipf_sample`: bench's distribution, the same under both
+             numpys (the pseudo-adaptive path's input beside zipf20).
 
 `zipf_sample` is a copy of ans_tpu/utils/zipf.py (rejection-inversion on
 `rng.random`, held equal to it by tests/test_torch_slice.py): it draws
@@ -59,6 +62,10 @@ def bench_input(n: int, seed: int = 42) -> np.ndarray:
 
 def zipf20_input(n: int) -> np.ndarray:
     return zipf_sample(np.random.default_rng(0), n, 1 << 20)
+
+
+def zipf125_input(n: int) -> np.ndarray:
+    return zipf_sample(np.random.default_rng(42), n, 1 << 28, 1.25) - 1
 
 
 def dense_input(n: int) -> np.ndarray:

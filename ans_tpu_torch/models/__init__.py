@@ -3,8 +3,9 @@
 Every codec exposes `encode(values) -> bytes` and
 `decode(buf, n) -> np.uint32 array` and runs on the device it was built
 for.  Ported so far: the lane-engine ANS, ANSsint-h, ANSfold-f, ANSmsb,
-ANSsmsb-h and ANSrfold-f methods and the byte path (vbyte, streamvbyte,
-vbyteANS, streamvbyteANS); any other name of ans_tpu's registry raises
+ANSsmsb-h and ANSrfold-f methods, the byte path (vbyte, streamvbyte,
+vbyteANS, streamvbyteANS) and pseudo_adaptive (the ATFP block container,
+models/pseudo_adaptive.py); any other name of ans_tpu's registry raises
 KeyError naming the ROADMAP item that will port it.  The blocked
 container is ans_tpu_torch.parallel.BlockCodec.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 from . import ans as _lane
 from . import bytes as _bytes
 from . import config
+from . import pseudo_adaptive as _pseudo
 from .engine import PreparedDecoder, PreparedEncoder  # noqa: F401
 
 # the H_approx values of ans_tpu's ANSsint-h and ANSsmsb-h names
@@ -42,19 +44,24 @@ _BYTE = {
         lanes, device=device),
 }
 
+# block containers of per-block models: ans_tpu's default instance
+_BLOCKS = {
+    "pseudo_adaptive": lambda lanes, device: _pseudo.PseudoAdaptive(
+        lanes=lanes, device=device),
+}
+
 # name prefix -> where it is queued (ROADMAP.md, queue 1)
 _UNPORTED = (
-    ("pseudo_adaptive", "queue 1 item 9 (pseudo-adaptive)"),
     ("", "queue 1 item 8 (the host codecs: fse, huffzero and their "
          "composites, shuff, arith, optpfor, entropy)"),
 )
 
 
 def _lookup(name: str, registry=None):
-    registry = {**_LANE, **_BYTE} if registry is None else registry
+    registry = {**_LANE, **_BYTE, **_BLOCKS} if registry is None else registry
     if name in registry:
         return registry[name]
-    if name in _BYTE:
+    if name in _BYTE or name in _BLOCKS:
         raise KeyError(f"{name!r} is not a lane-format ANS method")
     todo = next(item for prefix, item in _UNPORTED if name.startswith(prefix))
     raise KeyError(f"method {name!r} is not ported to ans_tpu_torch yet "
@@ -62,7 +69,7 @@ def _lookup(name: str, registry=None):
 
 
 def available():
-    return sorted({**_LANE, **_BYTE})
+    return sorted({**_LANE, **_BYTE, **_BLOCKS})
 
 
 def get(name: str, *, device, lanes: int | None = None):

@@ -14,12 +14,14 @@ engines.  "search" (K3) and "grouped" (K5) each read their own layout;
 table fits the shared memory of one block.  The engine is not visible on
 the wire; `choose_decode_engine` picks it from the table.
 
-Every kernel takes a batch of D streams that share one model
-(`PreparedBatchEncoder`, `PreparedBatchDecoder`: the sections of a
-blocked container, parallel/block_runtime.py): one scan launch, one
-placement launch and one decode launch serve the whole batch.  The
-one-stream objects (`PreparedEncoder`, `PreparedDecoder`, `encode`,
-`decode`) are the batch of one.
+Every kernel takes a batch of D streams (`PreparedBatchEncoder`,
+`PreparedBatchDecoder`) that share one model (the sections of a blocked
+container, parallel/block_runtime.py) or have one each (the blocks of a
+pseudo-adaptive container, models/pseudo_adaptive.py; ops/model_batch.py
+lays their tables out): one scan launch, one placement launch and one
+decode launch serve the whole batch.  The one-stream objects
+(`PreparedEncoder`, `PreparedDecoder`, `encode`, `decode`) are the batch
+of one.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import tables
+from ..ops import model_batch, tables
 from ..ops.decode import (decode_direct_batch, decode_grouped_batch,
                           decode_search_batch)
 from ..ops.encode import encode_scan_batch, encode_scan_grouped_batch
@@ -68,34 +70,47 @@ def choose_decode_engine(table, S: int) -> str:
     return "direct" if "direct" in engines else engines[0]
 
 
+def dec_device_table(table, engine: str, device):
+    """The device table `engine`'s kernel reads for a decode table."""
+    if engine == "direct":
+        table = tables.materialize_slots(table)
+    return tables.to_device(table, device)
+
+
 class PreparedBatchDecoder:
-    """D streams of one frame staged on `device`, each of T steps of S
-    lanes: their payloads one after the other in one buffer, their states
-    (D, S) and lengths n_sec (D,); each call is one launch of the engine's
-    kernel for the whole batch.  `engine` is "search" (K3), "grouped" (K5)
-    or "direct" (K4); None leaves the choice to choose_decode_engine.  An
-    engine the table is not eligible for raises ValueError."""
+    """D streams staged on `device`, each of T steps of S lanes: their
+    payloads one after the other in one buffer, their states (D, S) and
+    lengths n_sec (D,); each call is one launch of the engine's kernel for
+    the whole batch.  `table` is the decode table the streams share, or the
+    ModelBatch of their device tables for `engine` (dec_device_table; one
+    a stream, ops/model_batch.py).  `engine` is "search" (K3), "grouped"
+    (K5) or "direct" (K4); None leaves the choice to choose_decode_engine.
+    An engine the table is not eligible for raises ValueError."""
 
     def __init__(self, payloads, states: np.ndarray, table, n_sec, *, S: int,
                  T: int, device, engine: str | None = None):
-        if engine is None:
-            engine = choose_decode_engine(table, S)
-        elif engine not in eligible_engines(table):
-            raise ValueError(
-                f"decode engine {engine!r} is not eligible for this frame "
-                f"(eligible: {eligible_engines(table)}; \"direct\" needs "
-                f"{tables.direct_table_bytes(table)} bytes of tables in "
-                f"{tables.DIRECT_TABLE_BYTES})")
-        if engine == "direct":
-            table = tables.materialize_slots(table)
+        self.device = torch.device(device)
+        if isinstance(table, model_batch.ModelBatch):
+            if engine is None:
+                raise ValueError("a ModelBatch of device tables is read by "
+                                 "the engine it was made for: pass it")
+            self.table = table
+        else:
+            if engine is None:
+                engine = choose_decode_engine(table, S)
+            elif engine not in eligible_engines(table):
+                raise ValueError(
+                    f"decode engine {engine!r} is not eligible for this "
+                    f"frame (eligible: {eligible_engines(table)}; \"direct\" "
+                    f"needs {tables.direct_table_bytes(table)} bytes of "
+                    f"tables in {tables.DIRECT_TABLE_BYTES})")
+            self.table = dec_device_table(table, engine, self.device)
         self.engine = engine
         self._kernel = {"search": decode_search_batch,
                         "grouped": decode_grouped_batch,
                         "direct": decode_direct_batch}[engine]
         self.n_sec = np.asarray(n_sec, dtype=np.int64)
         self.S, self.T = S, T
-        self.device = torch.device(device)
-        self.table = tables.to_device(table, self.device)
         lens = [len(p) for p in payloads]
         self.stream = torch.from_numpy(np.concatenate(
             [np.asarray(p, dtype=np.uint8) for p in payloads])).to(
@@ -156,10 +171,12 @@ def _section_plan(step_base: np.ndarray, total: int, T: int):
 
 
 def _scan(syms: torch.Tensor, n: torch.Tensor, table):
-    """The encode scans of a (D, T, S) batch a device table calls for: K6
-    under the grouped layout (tables.GroupedEncDevice), K1 otherwise
-    (tables.EncDevice)."""
-    if isinstance(table, tables.GroupedEncDevice):
+    """The encode scans of a (D, T, S) batch a device table (or a
+    ModelBatch of them) calls for: K6 under the grouped layout
+    (tables.GroupedEncDevice), K1 otherwise (tables.EncDevice)."""
+    kind = (table.kind if isinstance(table, model_batch.ModelBatch)
+            else type(table))
+    if kind is tables.GroupedEncDevice:
         return encode_scan_grouped_batch(syms, n, table)
     return encode_scan_batch(syms, n, table)
 
@@ -177,13 +194,14 @@ def encode_streams(mapped: torch.Tensor, nb: torch.Tensor,
 
 
 class PreparedBatchEncoder:
-    """Device-resident encode of D streams that share one model: the
-    (D, T, S) i32 staged inputs (symbols or ranks, exception-byte counts,
-    the values' three low bytes), the lengths n_sec (D,) and the scan's
-    device table, all on one device.  One priming scan and placement fix
-    each stream's step offsets (`offsets`, (D, T + 1) host i64 positions in
-    the batch's stream) and ends; each call then runs one scan launch and
-    one placement launch for the batch, the placement checking the ends."""
+    """Device-resident encode of D streams: the (D, T, S) i32 staged inputs
+    (symbols or ranks, exception-byte counts, the values' three low bytes),
+    the lengths n_sec (D,) and the scan's device table the streams share or
+    a ModelBatch of one a stream, all on one device.  One priming scan and
+    placement fix each stream's step offsets (`offsets`, (D, T + 1) host
+    i64 positions in the batch's stream) and ends; each call then runs one
+    scan launch and one placement launch for the batch, the placement
+    checking the ends."""
 
     def __init__(self, mapped: torch.Tensor, nb: torch.Tensor,
                  excw: torch.Tensor, n_sec, table):

@@ -12,12 +12,15 @@ from device memory.  The wrapper takes "ring" wherever the ring fits the
 block's shared memory beside the tables (`choose_instance`);
 `instance_launches` counts each.
 
-Each kernel decodes a batch of D streams that share one frame in one
-launch, one block a stream (`decode_search_batch`, `decode_direct_batch`,
-`decode_grouped_batch`: the sections of a blocked container); the
-one-stream wrappers are the batch of one.  The model is shared, so the
-instance is one choice for the batch, and its error word is one for the
-batch: one sync a launch."""
+Each kernel decodes a batch of D streams in one launch, one block a
+stream (`decode_search_batch`, `decode_direct_batch`,
+`decode_grouped_batch`), each stream under its own frame (a
+model_batch.ModelBatch of D tables: the blocks of a pseudo-adaptive
+container) or all under one (a table: the sections of a blocked
+container, every offset of the batch 0); the one-stream wrappers are the
+batch of one.  The instance is one choice for the batch, taken by its
+largest frame, and its error word is one for the batch: one sync a
+launch."""
 
 from __future__ import annotations
 
@@ -26,9 +29,10 @@ import ctypes as ct
 import torch
 
 from ..csrc import build
-from .lane_codec import (batch_of_one, decode_batch_plain,
-                         decode_direct_plain, decode_grouped_plain,
-                         decode_search_plain)
+from . import model_batch
+from .lane_codec import (batch_of_one, decode_direct_batch_plain,
+                         decode_grouped_batch_plain,
+                         decode_search_batch_plain)
 from .tables import (DIRECT_TABLE_BYTES, DirectDevice, GroupedDecDevice,
                      SearchDevice)
 
@@ -85,9 +89,9 @@ def choose_instance(name: str, table_bytes: int, S: int, rounds: int,
 
 
 _ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-             ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_int, ct.c_int, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-             ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
+             ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
+             ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
+             ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_search(stream: torch.Tensor, states: torch.Tensor,
@@ -106,37 +110,39 @@ def decode_search(stream: torch.Tensor, states: torch.Tensor,
 
 
 def decode_search_batch(stream: torch.Tensor, stream_off: torch.Tensor,
-                        states: torch.Tensor, n: torch.Tensor,
-                        table: SearchDevice, T: int,
+                        states: torch.Tensor, n: torch.Tensor, table, T: int,
                         instance: str | None = None) -> torch.Tensor:
-    """Decode D streams of T lockstep steps that share one frame: stream
-    b is stream[stream_off[b]:stream_off[b + 1]] (stream_off (D + 1,) i64),
-    states (D, S) i32, n (D,) i64 its positions.  Returns (D, T, S) i32
+    """Decode D streams of T lockstep steps: stream b is
+    stream[stream_off[b]:stream_off[b + 1]] (stream_off (D + 1,) i64),
+    states (D, S) i32, n (D,) i64 its positions, table the SearchDevice the
+    streams share or a ModelBatch of one a stream.  Returns (D, T, S) i32
     (only the first n[b] positions of stream b are meaningful).  Raises
     ValueError when a read would pass the end of its stream.  CPU tensors
-    run the plain version (lane_codec.decode_search_plain, stream by
-    stream); CUDA tensors launch the kernel once for the batch, in the
-    instance choose_instance picks (`instance` forces one)."""
+    run the plain version (lane_codec.decode_search_batch_plain); CUDA
+    tensors launch the kernel once for the batch, in the instance
+    choose_instance picks for its largest frame (`instance` forces
+    one)."""
     global launches
-    _check_batch("decode_search", stream, stream_off, states, n)
-    tensors = (stream, stream_off, states, n, table.bases, table.high,
-               table.nb)
+    batch = _check_batch("decode_search", stream, stream_off, states, n,
+                         table)
+    tensors = (stream, stream_off, states, n, *batch.device_tensors())
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_batch_plain(decode_search_plain, stream, stream_off,
-                                  states, table, n, T)
+        return decode_search_batch_plain(stream, stream_off, states, n,
+                                  batch, T)
     S = _lanes("decode_search", states, stream)
-    which, ring = choose_instance(
-        "decode_search", 4 * (table.bases.numel() + 2 * table.sigma), S,
-        table.NR + table.NE, instance)
+    depth, sigma = batch.largest("depth"), batch.largest("sigma")
+    NR, NE = batch.largest("NR"), batch.largest("NE")
+    which, ring, _ = launch_plan("decode_search", batch, S, instance)
     dev = build.require_cuda("decode_search", *tensors)
     D = states.shape[0]
     out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
+    t = batch.tensors
     fn = build.function("decode_search", _ARGTYPES)
     build.check("decode_search", fn(
         build.ptr(stream), build.ptr(stream_off), build.ptr(states),
-        build.ptr(table.bases), build.ptr(table.high), build.ptr(table.nb),
-        table.depth, table.sigma, table.log2m, table.NR, table.NE,
+        build.ptr(t["bases"]), build.ptr(t["high"]), build.ptr(t["nb"]),
+        build.ptr(batch.meta), batch.stride, depth, sigma, NR, NE,
         build.ptr(n), D, T, S, ring, build.ptr(out), build.ptr(err),
         build.current_stream(dev)))
     launches += 1
@@ -146,9 +152,9 @@ def decode_search_batch(stream: torch.Tensor, stream_off: torch.Tensor,
 
 
 _DIRECT_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                    ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                    ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                    ct.c_void_p, ct.c_void_p, ct.c_void_p]
+                    ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_int, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
+                    ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def decode_direct(stream: torch.Tensor, states: torch.Tensor,
@@ -164,27 +170,29 @@ def decode_direct(stream: torch.Tensor, states: torch.Tensor,
 
 
 def decode_direct_batch(stream: torch.Tensor, stream_off: torch.Tensor,
-                        states: torch.Tensor, n: torch.Tensor,
-                        table: DirectDevice, T: int,
+                        states: torch.Tensor, n: torch.Tensor, table, T: int,
                         instance: str | None = None) -> torch.Tensor:
-    """Decode D streams through the per-slot table of their frame;
-    arguments, result and errors as decode_search_batch.  CPU tensors run
-    the plain version (lane_codec.decode_direct_plain, stream by stream);
-    CUDA tensors launch the kernel once for the batch."""
+    """Decode D streams through the per-slot tables of their frames (table
+    a DirectDevice or a ModelBatch of them); arguments, result and errors
+    as decode_search_batch.  Raises ValueError when a frame's tables do not
+    fit the shared memory of one block.  CPU tensors run the plain version
+    (lane_codec.decode_direct_batch_plain); CUDA tensors launch the kernel
+    once for the batch."""
     global direct_launches
-    _check_batch("decode_direct", stream, stream_off, states, n)
-    smem = 2 * table.frame_size + 16 * table.sigma
+    batch = _check_batch("decode_direct", stream, stream_off, states, n,
+                         table)
+    smem = _direct_bytes(batch)
     if smem > DIRECT_TABLE_BYTES:
         raise ValueError(
             f"decode_direct: the frame's tables take {smem} bytes of "
             f"shared memory; a block has {DIRECT_TABLE_BYTES}")
-    tensors = (stream, stream_off, states, n, table.slot_sym, table.rows)
+    tensors = (stream, stream_off, states, n, *batch.device_tensors())
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_batch_plain(decode_direct_plain, stream, stream_off,
-                                  states, table, n, T)
+        return decode_direct_batch_plain(stream, stream_off, states, n,
+                                  batch, T)
     S = _lanes("decode_direct", states, stream)
-    which, ring = choose_instance("decode_direct", smem, S,
-                                  table.NR + table.NE, instance)
+    NR, NE = batch.largest("NR"), batch.largest("NE")
+    which, ring, _ = launch_plan("decode_direct", batch, S, instance)
     dev = build.require_cuda("decode_direct", *tensors)
     D = states.shape[0]
     out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
@@ -192,9 +200,10 @@ def decode_direct_batch(stream: torch.Tensor, stream_off: torch.Tensor,
     fn = build.function("decode_direct", _DIRECT_ARGTYPES)
     build.check("decode_direct", fn(
         build.ptr(stream), build.ptr(stream_off), build.ptr(states),
-        build.ptr(table.rows), build.ptr(table.slot_sym), table.sigma,
-        table.log2m, table.NR, table.NE, build.ptr(n), D, T, S, ring,
-        build.ptr(out), build.ptr(err), build.current_stream(dev)))
+        build.ptr(batch.tensors["rows"]), build.ptr(batch.tensors["slot_sym"]),
+        build.ptr(batch.meta), batch.stride, smem, NR, NE, build.ptr(n), D,
+        T, S, ring, build.ptr(out), build.ptr(err),
+        build.current_stream(dev)))
     direct_launches += 1
     instance_launches["decode_direct"][which] += 1
     _raise_on(err)
@@ -203,20 +212,31 @@ def decode_direct_batch(stream: torch.Tensor, stream_off: torch.Tensor,
 
 _GROUPED_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                      ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                     ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-                     ct.c_int, ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
-                     ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
-                     ct.c_void_p]
+                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                     ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
-def grouped_shared_tables(table: GroupedDecDevice) -> tuple[bool, int]:
+def grouped_shared_tables(table) -> tuple[bool, int]:
     """(whether K5 stages the per-rank table and nb in shared memory, the
-    bytes of shared memory its tables then take): the group tables always,
-    the per-rank table when both fit the block."""
-    small = table.group_bytes()
-    both = small + table.rank_table_bytes()
-    fits = both <= DIRECT_TABLE_BYTES
-    return fits, both if fits else small
+    bytes of shared memory its tables then take) for a GroupedDecDevice or
+    a ModelBatch of them: the group tables always, the per-rank tables
+    when every frame's fit the block, each frame laid out as the kernel
+    lays it out (nb's bytes in every frame when one has exception bytes),
+    the largest frame's bytes."""
+    batch = model_batch.of(table)
+
+    def plan():
+        NG = batch.column("groups_len")
+        small = (16 * NG + 4 * (NG + (1 << batch.column("levels")))
+                 + 2 * batch.column("buckets_len"))
+        nes = batch.largest("NE") > 0
+        both = small + 4 * batch.column("table_len") + (
+            batch.column("sigma") if nes else 0)
+        fits = int(both.max()) <= DIRECT_TABLE_BYTES
+        return fits, int((both if fits else small).max())
+
+    return batch.remember("grouped_shared_tables", plan)
 
 
 def decode_grouped(stream: torch.Tensor, states: torch.Tensor,
@@ -233,42 +253,75 @@ def decode_grouped(stream: torch.Tensor, states: torch.Tensor,
 
 
 def decode_grouped_batch(stream: torch.Tensor, stream_off: torch.Tensor,
-                         states: torch.Tensor, n: torch.Tensor,
-                         table: GroupedDecDevice, T: int,
-                         instance: str | None = None) -> torch.Tensor:
-    """Decode D streams of one frequency-grouped frame; arguments, result
-    and errors as decode_search_batch.  CPU tensors run the plain version
-    (lane_codec.decode_grouped_plain, stream by stream); CUDA tensors
+                         states: torch.Tensor, n: torch.Tensor, table,
+                         T: int, instance: str | None = None) -> torch.Tensor:
+    """Decode D streams of frequency-grouped frames (table a
+    GroupedDecDevice the streams share or a ModelBatch of one a stream);
+    arguments, result and errors as decode_search_batch.  CPU tensors run
+    the plain version (lane_codec.decode_grouped_batch_plain); CUDA tensors
     launch the kernel once for the batch."""
     global grouped_launches
-    _check_batch("decode_grouped", stream, stream_off, states, n)
-    tensors = (stream, stream_off, states, n, table.groups, table.bases,
-               table.buckets, table.table, table.nb)
+    batch = _check_batch("decode_grouped", stream, stream_off, states, n,
+                         table)
+    tensors = (stream, stream_off, states, n, *batch.device_tensors())
     if all(t.device.type == "cpu" for t in tensors):
-        return decode_batch_plain(decode_grouped_plain, stream, stream_off,
-                                  states, table, n, T)
+        return decode_grouped_batch_plain(stream, stream_off, states, n,
+                                  batch, T)
     S = _lanes("decode_grouped", states, stream)
-    smem_table, smem = grouped_shared_tables(table)
-    which, ring = choose_instance("decode_grouped", smem, S,
-                                  table.NR + table.NE, instance)
+    NR, NE = batch.largest("NR"), batch.largest("NE")
+    which, ring, (smem_table, smem) = launch_plan("decode_grouped", batch, S,
+                                                  instance)
     dev = build.require_cuda("decode_grouped", *tensors)
     D = states.shape[0]
     out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
+    t = batch.tensors
     fn = build.function("decode_grouped", _GROUPED_ARGTYPES)
     build.check("decode_grouped", fn(
         build.ptr(stream), build.ptr(stream_off), build.ptr(states),
-        build.ptr(table.groups), build.ptr(table.bases),
-        build.ptr(table.buckets),
-        build.ptr(table.table) if table.table.numel() else None,
-        build.ptr(table.nb) if table.NE else None, table.groups.shape[0],
-        table.levels, table.shift, table.sigma, table.log2m, table.NR,
-        table.NE, build.ptr(n), D, T, S, ring, int(smem_table),
-        build.ptr(out), build.ptr(err), build.current_stream(dev)))
+        build.ptr(t["groups"]), build.ptr(t["bases"]),
+        build.ptr(t["buckets"]),
+        build.ptr(t["table"]) if t["table"].numel() else None,
+        build.ptr(t["nb"]) if NE else None, build.ptr(batch.meta),
+        batch.stride, smem, NR, NE, build.ptr(n), D, T, S, ring,
+        int(smem_table), build.ptr(out), build.ptr(err),
+        build.current_stream(dev)))
     grouped_launches += 1
     instance_launches["decode_grouped"][which] += 1
     _raise_on(err)
     return out
+
+
+def _direct_bytes(batch) -> int:
+    """Shared memory K4's tables take: the largest frame's u16 per slot
+    and 16-byte row per live symbol."""
+    return batch.remember("direct_bytes", lambda: int(
+        (2 * batch.column("frame_size") + 16 * batch.column("sigma")).max()))
+
+
+def launch_plan(name: str, table, S: int, instance: str | None = None):
+    """(instance, ring bytes, what else the launch fixes) of decode kernel
+    `name` ("decode_search", "decode_direct" or "decode_grouped") for a
+    table or a ModelBatch at S lanes, as its wrapper launches it: the
+    instance by choose_instance on the largest frame's tables and rounds;
+    for K5 also (whether the per-rank tables go to shared memory, their
+    bytes), else None."""
+    batch = model_batch.of(table)
+
+    def plan():
+        rounds = batch.largest("NR") + batch.largest("NE")
+        extra = None
+        if name == "decode_search":
+            smem = 4 * ((1 << batch.largest("depth")) + 1
+                        + 2 * batch.largest("sigma"))
+        elif name == "decode_direct":
+            smem = _direct_bytes(batch)
+        else:
+            extra = grouped_shared_tables(batch)
+            smem = extra[1]
+        return (*choose_instance(name, smem, S, rounds, instance), extra)
+
+    return batch.remember(("launch_plan", name, S, instance), plan)
 
 
 def _check_inputs(name: str, stream: torch.Tensor,
@@ -287,7 +340,9 @@ def _one(stream: torch.Tensor, states: torch.Tensor, n: int):
 
 
 def _check_batch(name: str, stream: torch.Tensor, stream_off: torch.Tensor,
-                 states: torch.Tensor, n: torch.Tensor) -> None:
+                 states: torch.Tensor, n: torch.Tensor, table):
+    """The batch's models (model_batch.of(table)), after checking the
+    inputs' shapes."""
     if stream.dim() != 1 or stream.dtype != torch.uint8:
         raise ValueError(f"{name}: stream must be a 1-d uint8 tensor")
     if states.dim() != 2 or states.dtype != torch.int32:
@@ -298,6 +353,9 @@ def _check_batch(name: str, stream: torch.Tensor, stream_off: torch.Tensor,
                          "tensor")
     if n.shape != (D,) or n.dtype != torch.int64:
         raise ValueError(f"{name}: n must be a ({D},) int64 tensor")
+    batch = model_batch.of(table)
+    batch.check(name, D)
+    return batch
 
 
 def _lanes(name: str, states: torch.Tensor, stream: torch.Tensor) -> int:

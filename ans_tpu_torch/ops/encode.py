@@ -4,9 +4,12 @@ scan (csrc/encode_scan_grouped.cu), and their wrappers.
 Replace ans_tpu/ops/pallas_encode.py `encode_scan` (value-indexed tables)
 and `encode_scan_grouped` (the frequency-grouped layout).
 
-Each kernel scans a batch of D streams that share one table in one launch
-(`encode_scan_batch`, `encode_scan_grouped_batch`: the sections of a
-blocked container); the one-stream wrappers are the batch of one."""
+Each kernel scans a batch of D streams in one launch (`encode_scan_batch`,
+`encode_scan_grouped_batch`), each stream under its own table (a
+model_batch.ModelBatch of D tables: the blocks of a pseudo-adaptive
+container) or all under one (a table: the sections of a blocked
+container, every offset of the batch 0); the one-stream wrappers are the
+batch of one."""
 
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import ctypes as ct
 import torch
 
 from ..csrc import build
-from .lane_codec import (batch_of_one, encode_scan_grouped_plain,
-                         encode_scan_plain, scan_batch_plain)
+from . import model_batch
+from .lane_codec import (batch_of_one, encode_scan_batch_plain,
+                         encode_scan_grouped_batch_plain,
+                         encode_scan_grouped_plain, encode_scan_plain)
 from .tables import EncDevice, GroupedEncDevice
 
 # launches of the CUDA kernels K1 and K6, one a batch (never counts a plain
@@ -24,9 +29,9 @@ from .tables import EncDevice, GroupedEncDevice
 launches = 0
 grouped_launches = 0
 
-_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_int,
-             ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
-             ct.c_void_p, ct.c_void_p]
+_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
+             ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
+             ct.c_void_p, ct.c_void_p, ct.c_void_p]
 
 
 def _check(name: str, syms: torch.Tensor, dims: int) -> None:
@@ -35,11 +40,16 @@ def _check(name: str, syms: torch.Tensor, dims: int) -> None:
         raise ValueError(f"{name}: syms must be a {shape} int32 tensor")
 
 
-def _check_batch(name: str, syms: torch.Tensor, n: torch.Tensor):
+def _check_batch(name: str, syms: torch.Tensor, n: torch.Tensor, table):
+    """The batch's models (model_batch.of(table)), after checking the
+    inputs' shapes."""
     _check(name, syms, 3)
     if n.shape != (syms.shape[0],) or n.dtype != torch.int64:
         raise ValueError(f"{name}: n must be a ({syms.shape[0]},) int64 "
                          "tensor")
+    batch = model_batch.of(table)
+    batch.check(name, syms.shape[0])
+    return batch
 
 
 def _outputs(syms: torch.Tensor, dev):
@@ -67,31 +77,36 @@ def encode_scan(syms: torch.Tensor, n: int, table: EncDevice):
     _check("encode_scan", syms, 2)
     if syms.device.type == "cpu" and table.words.device.type == "cpu":
         return encode_scan_plain(syms, n, table)
-    return _scan(syms, batch_of_one(syms.device, int(n)), table)
+    return _scan(syms, batch_of_one(syms.device, int(n)),
+                 model_batch.shared(table))
 
 
-def encode_scan_batch(syms: torch.Tensor, n: torch.Tensor, table: EncDevice):
+def encode_scan_batch(syms: torch.Tensor, n: torch.Tensor, table):
     """Reverse rANS scans of D streams: syms (D, T, S) i32 staged symbols,
-    n (D,) i64 the positions of each stream (on syms' device).  Returns
+    n (D,) i64 the positions of each stream (on syms' device), table an
+    EncDevice the streams share or a ModelBatch of one a stream.  Returns
     (packed (D, T, S) i32, states (D, S) i32).  CPU tensors run the plain
-    version (lane_codec.encode_scan_plain, stream by stream); CUDA tensors
-    launch the kernel once for the batch."""
-    _check_batch("encode_scan", syms, n)
-    if all(t.device.type == "cpu" for t in (syms, n, table.words)):
-        return scan_batch_plain(encode_scan_plain, syms, n, table)
-    return _scan(syms, n, table)
+    version (lane_codec.encode_scan_batch_plain); CUDA tensors launch the
+    kernel once for the batch."""
+    batch = _check_batch("encode_scan", syms, n, table)
+    if all(t.device.type == "cpu" for t in (syms, n,
+                                            *batch.device_tensors())):
+        return encode_scan_batch_plain(syms, n, batch)
+    return _scan(syms, n, batch)
 
 
-def _scan(syms: torch.Tensor, n: torch.Tensor, table: EncDevice):
+def _scan(syms: torch.Tensor, n: torch.Tensor, batch):
     global launches
-    dev = build.require_cuda("encode_scan", syms, n, table.words)
+    words = batch.tensors["words"]
+    dev = build.require_cuda("encode_scan", syms, n, words, batch.meta)
     D, T, S = _batch_dims(syms)
     packed, states, err = _outputs(syms, dev)
     fn = build.function("encode_scan", _ARGTYPES)
     build.check("encode_scan", fn(
-        build.ptr(syms), build.ptr(table.words), table.words.shape[0],
-        build.ptr(n), D, T, S, table.log2m, build.ptr(packed),
-        build.ptr(states), build.ptr(err), build.current_stream(dev)))
+        build.ptr(syms), build.ptr(words), build.ptr(batch.meta),
+        batch.stride, batch.largest("words_len"), build.ptr(n), D, T, S,
+        build.ptr(packed), build.ptr(states), build.ptr(err),
+        build.current_stream(dev)))
     launches += 1
     if err.item():
         raise ValueError("encode_scan: a symbol lies outside the table")
@@ -99,9 +114,9 @@ def _scan(syms: torch.Tensor, n: torch.Tensor, table: EncDevice):
 
 
 _GROUPED_ARGTYPES = [ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                     ct.c_int64, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
-                     ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
-                     ct.c_void_p, ct.c_void_p, ct.c_void_p]
+                     ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p,
+                     ct.c_int, ct.c_int, ct.c_int, ct.c_void_p, ct.c_void_p,
+                     ct.c_void_p, ct.c_void_p]
 
 
 def _grouped_tensors(table: GroupedEncDevice, *inputs):
@@ -124,38 +139,38 @@ def encode_scan_grouped(syms: torch.Tensor, n: int, table: GroupedEncDevice):
     if all(t.device.type == "cpu" for t in _grouped_tensors(table, syms)):
         return encode_scan_grouped_plain(syms, n, table)
     return _scan_grouped(syms, batch_of_one(syms.device, int(n)),
-                         table)
+                         model_batch.shared(table))
 
 
-def encode_scan_grouped_batch(syms: torch.Tensor, n: torch.Tensor,
-                              table: GroupedEncDevice):
+def encode_scan_grouped_batch(syms: torch.Tensor, n: torch.Tensor, table):
     """The grouped scans of D streams, arguments and result as
-    encode_scan_batch; raises ValueError when a symbol or a rank lies
-    outside the tables.  CPU tensors run the plain version
-    (lane_codec.encode_scan_grouped_plain, stream by stream); CUDA tensors
-    launch the kernel once for the batch."""
-    _check_batch("encode_scan_grouped", syms, n)
-    if all(t.device.type == "cpu" for t in _grouped_tensors(table, syms, n)):
-        return scan_batch_plain(encode_scan_grouped_plain, syms, n, table)
-    return _scan_grouped(syms, n, table)
+    encode_scan_batch (table a GroupedEncDevice or a ModelBatch of them);
+    raises ValueError when a symbol or a rank lies outside the tables.  CPU
+    tensors run the plain version
+    (lane_codec.encode_scan_grouped_batch_plain); CUDA tensors launch the
+    kernel once for the batch."""
+    batch = _check_batch("encode_scan_grouped", syms, n, table)
+    if all(t.device.type == "cpu" for t in (syms, n,
+                                            *batch.device_tensors())):
+        return encode_scan_grouped_batch_plain(syms, n, batch)
+    return _scan_grouped(syms, n, batch)
 
 
-def _scan_grouped(syms: torch.Tensor, n: torch.Tensor,
-                  table: GroupedEncDevice):
+def _scan_grouped(syms: torch.Tensor, n: torch.Tensor, batch):
     global grouped_launches
-    dev = build.require_cuda("encode_scan_grouped",
-                             *_grouped_tensors(table, syms, n))
+    dev = build.require_cuda("encode_scan_grouped", syms, n,
+                             *batch.device_tensors())
     D, T, S = _batch_dims(syms)
     packed, states, err = _outputs(syms, dev)
-    rank_of = table.rank_of
+    rank_of = batch.tensors["rank_of"]
     fn = build.function("encode_scan_grouped", _GROUPED_ARGTYPES)
     build.check("encode_scan_grouped", fn(
-        build.ptr(syms), build.ptr(table.groups), build.ptr(table.bases),
+        build.ptr(syms), build.ptr(batch.tensors["groups"]),
+        build.ptr(batch.tensors["bases"]),
         None if rank_of is None else build.ptr(rank_of),
-        0 if rank_of is None else rank_of.numel(), table.groups.shape[0],
-        table.depth, table.sigma, build.ptr(n), D, T, S, table.log2m,
-        build.ptr(packed), build.ptr(states), build.ptr(err),
-        build.current_stream(dev)))
+        build.ptr(batch.meta), batch.stride, batch.largest("groups_len"),
+        batch.largest("depth"), build.ptr(n), D, T, S, build.ptr(packed),
+        build.ptr(states), build.ptr(err), build.current_stream(dev)))
     grouped_launches += 1
     if err.item():
         raise ValueError("encode_scan_grouped: a symbol or rank lies "

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from . import model_batch
 from .tables import (A_L, DirectDevice, EncDevice, GroupedDecDevice,
                      GroupedEncDevice, SearchDevice)
 
@@ -125,15 +126,17 @@ def encode_scan_grouped_plain(syms: torch.Tensor, n: int,
 
 
 def _scan(freq: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
-          log2m: int):
-    """The reverse scan of K1 and K6 over (T, S) int64 per-position
-    frequencies and slot bases (pad positions are masked by `valid`)."""
-    T, S = freq.shape
+          log2m):
+    """The reverse scan of K1 and K6 over (..., T, S) int64 per-position
+    frequencies and slot bases (pad positions are masked by `valid`);
+    log2m an int, or a tensor of one a stream shaped (..., 1)."""
+    T, S = freq.shape[-2:]
     f_all = freq.clamp(min=1)  # an absent symbol codes as freq 1
-    state = torch.full((S,), A_L, dtype=torch.int64, device=freq.device)
-    packed = torch.empty((T, S), dtype=torch.int32, device=freq.device)
+    state = torch.full(freq.shape[:-2] + (S,), A_L, dtype=torch.int64,
+                       device=freq.device)
+    packed = torch.empty(freq.shape, dtype=torch.int32, device=freq.device)
     for t in range(T - 1, -1, -1):
-        v, f = valid[t], f_all[t]
+        v, f = valid[..., t, :], f_all[..., t, :]
         ub = f << (31 - log2m)
         st = state
         word = torch.zeros_like(st)
@@ -144,9 +147,9 @@ def _scan(freq: torch.Tensor, base: torch.Tensor, valid: torch.Tensor,
             rc += e
             st = torch.where(e, st >> 8, st)
         q = st // f
-        new = (q << log2m) + (st - q * f) + base[t]
+        new = (q << log2m) + (st - q * f) + base[..., t, :]
         state = torch.where(v, new, state)
-        packed[t] = (word | (rc << 24)).to(torch.int32)
+        packed[..., t, :] = (word | (rc << 24)).to(torch.int32)
     return packed, state.to(torch.int32)
 
 
@@ -277,18 +280,8 @@ def decode_direct_plain(stream: torch.Tensor, states: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# the plain versions of the batched kernels: D streams, one after the other
+# the plain version of the batched placement: D streams, one after the other
 # --------------------------------------------------------------------------
-
-def scan_batch_plain(plain, syms: torch.Tensor, n: torch.Tensor, table):
-    """The scans of D streams by the one-stream plain version `plain`
-    (encode_scan_plain or encode_scan_grouped_plain): syms (D, T, S), n (D,)
-    i64.  Returns (packed (D, T, S) i32, states (D, S) i32)."""
-    outs = [plain(syms[d], int(nd), table)
-            for d, nd in enumerate(n.tolist())]
-    return (torch.stack([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]))
-
 
 def place_batch_plain(packed: torch.Tensor, nb: torch.Tensor,
                       excw: torch.Tensor, n: torch.Tensor):
@@ -310,21 +303,248 @@ def place_batch_plain(packed: torch.Tensor, nb: torch.Tensor,
     return torch.cat(parts), offsets
 
 
-def decode_batch_plain(plain, stream: torch.Tensor,
-                       stream_off: torch.Tensor, states: torch.Tensor,
-                       table, n: torch.Tensor, T: int) -> torch.Tensor:
-    """The decodes of D streams by the one-stream plain version `plain`
-    (decode_search_plain, decode_direct_plain or decode_grouped_plain):
-    stream b is stream[stream_off[b]:stream_off[b + 1]], states (D, S), n
-    (D,) i64.  Returns (D, T, S) i32; a stream with n = 0 is not decoded
-    (its rows hold zeros)."""
+# --------------------------------------------------------------------------
+# the plain versions of the batched kernels as the kernels see a batch: the
+# D streams at once, stream d's table read out of the batch's concatenated
+# tables at its row's offsets (ops/model_batch.py), whether the streams
+# share one model (one row) or have one each
+# --------------------------------------------------------------------------
+
+_PAD = 1 << 62  # past every key of a search
+
+
+def _column(batch, name: str, D: int, device) -> torch.Tensor:
+    """A model field of each of the D streams, (D,) int64 on `device`."""
+    col = batch.column(name)
+    if batch.shared:
+        col = col.repeat(D)
+    return torch.from_numpy(col).to(device)
+
+
+def _padded(cat: torch.Tensor, off: torch.Tensor,
+            length: torch.Tensor) -> torch.Tensor:
+    """Each stream's sorted part cat[off[d]:off[d] + length[d]] as a row of
+    a (D, max length) int64 matrix, padded past every key."""
+    width = max(int(length.max()), 1)
+    at = torch.arange(width, device=off.device)
+    inside = at[None, :] < length[:, None]
+    idx = torch.where(inside, off[:, None] + at[None, :], 0)
+    return torch.where(inside, cat.to(torch.int64)[idx], _PAD)
+
+
+def _valid_batch(D: int, T: int, S: int, n: torch.Tensor) -> torch.Tensor:
+    pos = (torch.arange(T, device=n.device, dtype=torch.int64)[:, None] * S
+           + torch.arange(S, device=n.device, dtype=torch.int64)[None, :])
+    return pos[None] < n[:, None, None]
+
+
+def encode_scan_batch_plain(syms: torch.Tensor, n: torch.Tensor, table):
+    """Plain version of K1 on a batch: syms (D, T, S) i32, n (D,) i64,
+    table an EncDevice the streams share or a ModelBatch of one a stream.
+    Returns (packed (D, T, S) i32, states (D, S) i32), as encode_scan_plain
+    on each stream; raises ValueError when a symbol lies outside its
+    stream's table."""
+    batch = model_batch.of(table)
+    D, T, S = syms.shape
+    dev = syms.device
+    valid = _valid_batch(D, T, S, n)
+    s = torch.where(valid, syms.to(torch.int64) & 0xFFFFFFFF, 0)
+    sigma = _column(batch, "words_len", D, dev)[:, None, None]
+    if bool((s >= sigma).any()):
+        raise ValueError("encode_scan: a symbol lies outside the table")
+    words = batch.tensors["words"].to(torch.int64) & 0xFFFFFFFF
+    rows = words[_column(batch, "words_off", D, dev)[:, None, None] + s]
+    return _scan(rows[..., 0], rows[..., 1], valid,
+                 _column(batch, "log2m", D, dev)[:, None])
+
+
+def encode_scan_grouped_batch_plain(syms: torch.Tensor, n: torch.Tensor,
+                                    table):
+    """Plain version of K6 on a batch (table a GroupedEncDevice or a
+    ModelBatch of them): the streams' ranks, or symbol ids mapped through
+    their own rank_of, searched in their own group rank boundaries
+    (torch.searchsorted).  Result and errors as
+    encode_scan_grouped_plain on each stream."""
+    batch = model_batch.of(table)
+    D, T, S = syms.shape
+    dev = syms.device
+    col = functools.partial(_column, batch, D=D, device=dev)
+    valid = _valid_batch(D, T, S, n)
+    r = torch.where(valid, syms.to(torch.int64), 0)
+    ro_off = col("rank_of_off")[:, None, None]
+    has = ro_off >= 0
+    if bool(has.any()):
+        sym = r & 0xFFFFFF
+        if bool((has & (sym >= col("rank_of_len")[:, None, None])).any()):
+            raise ValueError("encode_scan_grouped: a symbol or rank lies "
+                             "outside the table")
+        rank_of = batch.tensors["rank_of"].to(torch.int64)
+        ranks = rank_of[torch.where(has, ro_off + sym, 0)]
+        r = torch.where(has, torch.where(valid, ranks, 0), r)
+    if bool(((r < 0) | (r >= col("sigma")[:, None, None])).any()):
+        raise ValueError("encode_scan_grouped: a symbol or rank lies "
+                         "outside the table")
+    bounds = _padded(batch.tensors["bases"], col("bases_off"),
+                     col("bases_len") - 1)
+    m = torch.searchsorted(bounds, r.reshape(D, -1), right=True) - 1
+    groups = batch.tensors["groups"].to(torch.int64) & 0xFFFFFFFF
+    rows = groups[col("groups_off")[:, None] + m].reshape(D, T, S, 4)
+    f = rows[..., 0]
+    return _scan(f, rows[..., 2] + (r - rows[..., 3]) * f, valid,
+                 col("log2m")[:, None])
+
+
+def decode_search_batch_plain(stream: torch.Tensor, stream_off: torch.Tensor,
+                              states: torch.Tensor, n: torch.Tensor, table,
+                              T: int) -> torch.Tensor:
+    """Plain version of K3 on a batch: stream b is stream[stream_off[b]:
+    stream_off[b + 1]], states (D, S) i32, n (D,) i64, table a SearchDevice
+    the streams share or a ModelBatch of one a stream.  Returns (D, T, S)
+    i32 as decode_search_plain on each stream (a stream with n = 0 holds
+    zeros); raises ValueError when a read passes the end of its stream."""
+    batch = model_batch.of(table)
+    D = states.shape[0]
+    col = functools.partial(_column, batch, D=D, device=states.device)
+    bases = batch.tensors["bases"].to(torch.int64)
+    high = batch.tensors["high"].to(torch.int64) & 0xFFFFFFFF
+    nbt = batch.tensors["nb"].to(torch.int64)
+    boff, hoff, noff = (col("bases_off")[:, None], col("high_off")[:, None],
+                        col("nb_off")[:, None])
+    log2m = col("log2m")[:, None]
+    search = _padded(batch.tensors["bases"], boff[:, 0],
+                     col("bases_len") - 1)
+    has_nb = bool(batch.largest("NE"))
+
+    def symbol(state):
+        slot = state & ((1 << log2m) - 1)
+        m = torch.searchsorted(search, slot, right=True) - 1
+        lb, ub = bases[boff + m], bases[boff + m + 1]
+        return ((ub - lb) * (state >> log2m) + slot - lb,
+                nbt[noff + m] if has_nb else None, high[hoff + m])
+
+    return _decode_batch(stream, stream_off, states, n, T, col("NR"),
+                         symbol)
+
+
+def decode_direct_batch_plain(stream: torch.Tensor, stream_off: torch.Tensor,
+                              states: torch.Tensor, n: torch.Tensor, table,
+                              T: int) -> torch.Tensor:
+    """Plain version of K4 on a batch (table a DirectDevice or a ModelBatch
+    of them); arguments, result and errors as decode_search_batch_plain."""
+    batch = model_batch.of(table)
+    D = states.shape[0]
+    col = functools.partial(_column, batch, D=D, device=states.device)
+    slot_sym = batch.tensors["slot_sym"].to(torch.int64) & 0xFFFF
+    rows = batch.tensors["rows"].to(torch.int64) & 0xFFFFFFFF
+    soff, roff = col("slot_sym_off")[:, None], col("rows_off")[:, None]
+    log2m = col("log2m")[:, None]
+    has_nb = bool(batch.largest("NE"))
+
+    def symbol(state):
+        slot = state & ((1 << log2m) - 1)
+        r = rows[roff + slot_sym[soff + slot]]
+        return (r[..., 0] * (state >> log2m) + slot - r[..., 1],
+                r[..., 3] if has_nb else None, r[..., 2])
+
+    return _decode_batch(stream, stream_off, states, n, T, col("NR"),
+                         symbol)
+
+
+def decode_grouped_batch_plain(stream: torch.Tensor,
+                               stream_off: torch.Tensor,
+                               states: torch.Tensor, n: torch.Tensor, table,
+                               T: int) -> torch.Tensor:
+    """Plain version of K5 on a batch (table a GroupedDecDevice or a
+    ModelBatch of them: each stream's per-rank table or none, and
+    exception bytes or none); arguments, result and errors as
+    decode_search_batch_plain."""
+    batch = model_batch.of(table)
+    D = states.shape[0]
+    col = functools.partial(_column, batch, D=D, device=states.device)
+    groups = batch.tensors["groups"].to(torch.int64) & 0xFFFFFFFF
+    values = batch.tensors["table"].to(torch.int64) & 0xFFFFFFFF
+    nbt = batch.tensors["nb"].to(torch.int64)
+    goff, log2m = col("groups_off")[:, None], col("log2m")[:, None]
+    toff, noff = col("table_off")[:, None], col("nb_off")[:, None]
+    has_table = col("table_len")[:, None] > 0
+    has_nb = col("NE")[:, None] > 0
+    search = _padded(batch.tensors["bases"], col("bases_off"),
+                     col("bases_len") - 1)
+
+    def symbol(state):
+        slot = state & ((1 << log2m) - 1)
+        g = groups[goff + torch.searchsorted(search, slot, right=True) - 1]
+        f = g[..., 0]
+        x = slot - g[..., 2]
+        j = x // f
+        rank = g[..., 3] + j
+        st0 = f * (state >> log2m) + x - j * f
+        nb = (torch.where(has_nb, nbt[torch.where(has_nb, noff + rank, 0)],
+                          0) if nbt.numel() else None)
+        high = (torch.where(has_table,
+                            values[torch.where(has_table, toff + rank, 0)],
+                            rank) if values.numel() else rank)
+        return st0, nb, high
+
+    return _decode_batch(stream, stream_off, states, n, T, col("NR"),
+                         symbol)
+
+
+def _decode_batch(stream, stream_off, states, n, T: int, NR, symbol):
+    """The lockstep loop of K3, K4 and K5 over the D streams of a batch at
+    once: each stream's lanes rank their reads in its own rounds (its own
+    NR renorm rounds, the exception rounds its symbols read), one cursor a
+    stream.  symbol(state) gives each lane's (D, S) state before
+    renormalisation, exception-byte count (None when no frame has any) and
+    the value's high part."""
     D, S = states.shape
-    out = torch.zeros((D, T, S), dtype=torch.int32, device=states.device)
-    off = stream_off.tolist()
-    for d, nd in enumerate(n.tolist()):
-        if nd > 0:
-            out[d] = plain(stream[off[d]:off[d + 1]], states[d], table,
-                           int(nd), T)
+    dev = states.device
+    # stream b is stream[stream_off[b]:stream_off[b + 1]], cut as a slice
+    # is cut at the buffer's end
+    start = stream_off[:-1].clamp(max=stream.numel())[:, None, None]
+    length = (stream_off[1:].clamp(max=stream.numel())[:, None, None]
+              - start).clamp(min=0)
+    # one zero byte past the end takes the (flagged) out-of-range reads
+    src = torch.cat([stream.to(torch.int64),
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
+    lanes = torch.arange(S, device=dev, dtype=torch.int64)
+    j = torch.arange(3, device=dev)
+    thr = torch.where(j[None, :] < NR[:, None], torch.tensor(
+        [A_L >> (8 * k) for k in range(3)], device=dev)[None, :], 0)
+    state = states.to(torch.int64) & 0xFFFFFFFF
+    cursor = torch.zeros((D, 1, 1), dtype=torch.int64, device=dev)
+    overrun = torch.zeros((), dtype=torch.bool, device=dev)
+    out = torch.empty((D, T, S), dtype=torch.int32, device=dev)
+    for t in range(T):
+        valid = t * S + lanes[None, :] < n[:, None]
+        st0, nb, high = symbol(state)
+        st0 = torch.where(valid, st0, state)
+        rc = torch.where(valid, (st0[..., None] < thr[:, None, :]).sum(-1),
+                         0)
+        masks = rc[..., None] > j
+        if nb is not None:
+            masks = torch.cat([masks, torch.where(valid, nb, 0)[..., None]
+                               > j], -1)
+        mi = masks.to(torch.int64)
+        tot = mi.sum(1, keepdim=True)
+        pos = cursor + (torch.cumsum(tot, -1) - tot) + torch.cumsum(mi, 1) \
+            - mi
+        overrun |= (masks & (pos >= length)).any()
+        byte = src[torch.where(masks & (pos < length), start + pos,
+                               stream.numel())]
+        st = st0
+        for k in range(3):
+            st = torch.where(masks[..., k], (st << 8) | byte[..., k], st)
+        low = torch.zeros_like(st)
+        for k in range(3, masks.shape[-1]):
+            low = torch.where(masks[..., k], (low << 8) | byte[..., k], low)
+        out[:, t] = ((high + low) & 0xFFFFFFFF).to(torch.int32)
+        state = st
+        cursor = cursor + tot.sum(-1, keepdim=True)
+    if bool(overrun):
+        raise ValueError("corrupt lane stream: a read passes the end of "
+                         "the stream")
+    out[n == 0] = 0
     return out
 
 

@@ -1,7 +1,7 @@
 """Device idle share of the prepared encoder and decoder on one GPU.
 
     python3 -m ans_tpu_torch.profile_idle [--method ANSfold-2]
-        [--input bench|zipf20] [--n N] [--lanes S] [--seed 42]
+        [--input bench|zipf20|zipf125] [--n N] [--lanes S] [--seed 42]
         [--sections D] [--calls 5] [--trace DIR]
 
 Stages an input (bench.py's zipf(1.25), or zipf20 for the grouped path;
@@ -10,7 +10,11 @@ ans_tpu_torch/inputs.py; n = 2^25 values by default) with
 default) on cuda, then runs each `--calls` times under torch.profiler.
 `--sections D` stages the blocked container instead
 (`parallel.BlockCodec(method, D)`: its prepared encoder and decoder, one
-launch a kernel for all D sections).  `--method vbyte` or `streamvbyte`
+launch a kernel for all D sections).  `--method pseudo_adaptive-int`
+or `pseudo_adaptive-msb` stages the pseudo-adaptive container at its
+defaults (models/pseudo_adaptive.py: blocks of 2^17, their default lane
+count, a model each; one launch a kernel a batch of blocks; `--lanes`
+does not apply).  `--method vbyte` or `streamvbyte`
 runs the splitter's wrappers instead
 (ops/bytesplit.py: K7, then K9 or K8) on the input on the card.  Each call is
 one `record_function` span that ends with `torch.cuda.synchronize()`,
@@ -142,7 +146,8 @@ def split_calls(method: str, x: np.ndarray) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--method", default="ANSfold-2")
-    ap.add_argument("--input", choices=("bench", "zipf20"), default="bench")
+    ap.add_argument("--input", choices=("bench", "zipf20", "zipf125"),
+                    default="bench")
     ap.add_argument("--n", type=int, default=1 << 25)
     ap.add_argument("--lanes", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=42,
@@ -158,17 +163,29 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from . import models
-    from .inputs import bench_input, zipf20_input
+    from .inputs import bench_input, zipf20_input, zipf125_input
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    x = (bench_input(args.n, args.seed) if args.input == "bench"
-         else zipf20_input(args.n))
+    x = {"bench": lambda: bench_input(args.n, args.seed),
+         "zipf20": lambda: zipf20_input(args.n),
+         "zipf125": lambda: zipf125_input(args.n)}[args.input]()
     if args.method in ("vbyte", "streamvbyte"):
         fns, engine = split_calls(args.method, x), None
+    elif args.method.startswith("pseudo_adaptive-"):
+        from .models.pseudo_adaptive import PseudoAdaptive
+        pa = PseudoAdaptive(kind=args.method.split("-")[1], device="cuda")
+        pe = pa.prepare_encoder(x)
+        pd = pa.prepare_decoder(pe.to_bytes(pe()))
+        if not np.array_equal(pd.to_host(pd()), x):
+            print("profile_idle: the pseudo-adaptive decoder does not "
+                  "return the input", file=sys.stderr)
+            return 1
+        fns = {"prepared_encode": pe, "prepared_decode": pd}
+        engine = ",".join(sorted(set(pd.engines)))
     elif args.sections:
         from .parallel import BlockCodec
         bc = BlockCodec(args.method, args.sections, args.lanes,

@@ -9,8 +9,10 @@ ANSfold-2 on zipf(1.25) data at n = 2^25 with S = 4096 lanes (the
 headline of bench.py); the frequency-grouped path, ANSfold-7 on zipf-2^20
 data (n = 2^25, S = 4096), with ANS on the same input (tail escape onto
 the pivot search) and on a 2^16-symbol input the escape declines
-(n = 2^22); and the byte path, vbyteANS and streamvbyteANS on the zipf-2^20
-data.  The inputs are ans_tpu_torch/inputs.py's:
+(n = 2^22); the byte path, vbyteANS and streamvbyteANS on the zipf-2^20
+data; and the blocked (ATFB) and pseudo-adaptive (ATFP) containers, whose
+streams are one batch a kernel launch.  The inputs are
+ans_tpu_torch/inputs.py's:
 
   0. device: the card's name and power limit;
   1. build: nvcc compiles the ten kernels from ans_tpu_torch/csrc, all at
@@ -74,7 +76,18 @@ data.  The inputs are ans_tpu_torch/inputs.py's:
      timed; the prepared batched encode and decode timed beside the same
      n as one stream; then ANSfold-2 in D = 128 sections (T = 64): an
      exact round trip, K1, K2, K3 and K4 against their plain versions,
-     and its times.
+     and its times;
+ 11. the pseudo-adaptive container (ATFP) at full width: ans_tpu's golden
+     containers of tests/fixtures/lane/pseudo.json through encode() and
+     decode(); then PseudoAdaptive at its defaults (blocks of 2^17 values,
+     S = 32, 256 blocks of n = 2^25, a model each) on zipf20 int (K6, K2,
+     K5), zipf20 msb (K1, K2, K4) and zipf125 int (K1, K2, K3), through
+     prepare_encoder / prepare_decoder: the container equal to
+     fullwidth_pseudo.json, decode exact, each encode call one scan and one
+     placement launch a scan batch and each decode call one decode launch
+     a decode batch; each batched kernel against its batched plain version
+     on the call's own staging (tolerance zero), timed, beside its bound;
+     the prepared decode beside the 256 blocks' one-stream decodes.
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
 probe's on its own run; its time, its plain version's, and its bound: the
@@ -104,6 +117,12 @@ LANE_FIXTURES = ROOT / "tests" / "fixtures" / "lane"
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
 BLOCK_D, BLOCK_D_WIDE = 32, 128  # sections of phase 10
+# phase 11: PseudoAdaptive's default block size (S = 32 lanes by default)
+# on (input, kind), and the scan and decode kernels each cell runs
+PSEUDO_BLOCK = 1 << 17
+PSEUDO_CELLS = (("zipf20", "int", "encode_scan_grouped", "decode_grouped"),
+                ("zipf20", "msb", "encode_scan", "decode_direct"),
+                ("zipf125", "int", "encode_scan", "decode_search"))
 RUNS, PLAIN_RUNS = 5, 1
 PLACE_REPEATS = 5  # K2 reruns that must write the same bytes
 BYTE_REPEATS = 5  # K7, K8 and K9 reruns that must give the same output
@@ -793,9 +812,10 @@ def check_batched(bc, x: np.ndarray, step_ns: float | None = None) -> dict:
     where = f"in a batch of D={D} at n={len(x)}, S={S}"
     grouped = isinstance(enc, tables.GroupedEncDevice)
     scan, scan_plain = ((encode.encode_scan_grouped_batch,
-                         lane_codec.encode_scan_grouped_plain) if grouped
-                        else (encode.encode_scan_batch,
-                              lane_codec.encode_scan_plain))
+                         lane_codec.encode_scan_grouped_batch_plain)
+                        if grouped else
+                        (encode.encode_scan_batch,
+                         lane_codec.encode_scan_batch_plain))
     sname = "encode_scan_grouped" if grouped else "encode_scan"
     errs, plain_ms = {}, {}
 
@@ -812,7 +832,7 @@ def check_batched(bc, x: np.ndarray, step_ns: float | None = None) -> dict:
 
     packed, states = scan(m, n, enc)
     errs[sname] = compare(sname, where, (packed, states), plain(
-        sname, lane_codec.scan_batch_plain, scan_plain, m, n, enc))
+        sname, scan_plain, m, n, enc))
     stream, offsets, ends = place.place_batch(packed, nb, ex, n)
     errs["place"] = compare("place", where, (stream, offsets), plain(
         "place", lane_codec.place_batch_plain, packed, nb, ex, n))
@@ -826,9 +846,9 @@ def check_batched(bc, x: np.ndarray, step_ns: float | None = None) -> dict:
     batch = {"search": decode.decode_search_batch,
              "direct": decode.decode_direct_batch,
              "grouped": decode.decode_grouped_batch}
-    plains = {"search": lane_codec.decode_search_plain,
-              "direct": lane_codec.decode_direct_plain,
-              "grouped": lane_codec.decode_grouped_plain}
+    plains = {"search": lane_codec.decode_search_batch_plain,
+              "direct": lane_codec.decode_direct_batch_plain,
+              "grouped": lane_codec.decode_grouped_batch_plain}
     runs = {sname: (lambda: scan(m, n, enc), enc),
             "place": (lambda: place.place_batch(packed, nb, ex, n, ends),
                       enc)}
@@ -837,8 +857,8 @@ def check_batched(bc, x: np.ndarray, step_ns: float | None = None) -> dict:
         out = batch[eng](stream, stream_off, states, n, tab, T)
         require(np.array_equal(pd.to_host(out), x),
                 f"{name} {where} does not decode the sections' values")
-        want = plain(name, lane_codec.decode_batch_plain, plains[eng],
-                     stream, stream_off, states, tab, n, T)
+        want = plain(name, plains[eng], stream, stream_off, states, n, tab,
+                     T)
         errs[name] = compare(name, where, valid_outputs(out, n),
                              valid_outputs(want, n))
         runs[name] = (lambda f=batch[eng], t=tab: f(
@@ -971,12 +991,203 @@ def check_golden_container() -> int:
     return len(recs)
 
 
+def check_golden_pseudo() -> int:
+    """The committed ATFP containers of ans_tpu (pseudo.json, lane and
+    compat) re-encode to the same bytes through encode() on the card and
+    decode exactly."""
+    from ans_tpu_torch.models.pseudo_adaptive import PseudoAdaptive
+    recs = json.loads((LANE_FIXTURES / "pseudo.json").read_text())
+    for rec in recs:
+        x = np.fromfile(LANE_FIXTURES / rec["input"], dtype="<u4")
+        blob = (LANE_FIXTURES / rec["blob"]).read_bytes()
+        require(sha256(blob) == rec["sha256"], f"{rec['blob']} changed")
+        codec = PseudoAdaptive(rec["block_size"], rec["kind"], rec["lanes"],
+                               rec["engine"], device=DEVICE)
+        require(codec.encode(x) == blob,
+                f"encode of {rec['input']} differs from {rec['blob']}")
+        require(np.array_equal(codec.decode(blob), x),
+                f"decode of {rec['blob']} differs from {rec['input']}")
+    return len(recs)
+
+
+def find_pseudo_record(x: np.ndarray, kind: str) -> dict:
+    input_sha = sha256(x.tobytes())
+    recs = [e for e in json.loads((LANE_FIXTURES / "fullwidth_pseudo.json")
+                                  .read_text())["inputs"]
+            if e["kind"] == kind and e["input_sha256"] == input_sha]
+    require(len(recs) == 1,
+            f"pseudo_adaptive {kind}: the input (numpy {np.__version__}, "
+            f"sha256 {input_sha[:12]}) is not in fullwidth_pseudo.json")
+    return recs[0]
+
+
+def run_pseudo(card: str, name: str, kind: str, x: np.ndarray, scan: str,
+               dec: str, step_ns: float) -> dict:
+    """PseudoAdaptive(kind) at its defaults on x through the prepared entry
+    points (encode(values) and decode(blob) are prepare, one call and the
+    bytes): the container equals the record, decode is exact; the encode
+    call is one scan launch (`scan`) and one placement launch a scan batch,
+    the decode call one `dec` launch a decode batch, by the counters; each
+    batched kernel against its batched plain version on the call's own
+    staging (tolerance zero), timed (CUDA events, min of RUNS; a plain
+    version runs once, and that run is its time) beside its bound and, for
+    the scan, its chain bound; the prepared decode beside the blocks'
+    one-stream decodes, one launch each."""
+    from ans_tpu_torch.models.pseudo_adaptive import PseudoAdaptive
+    from ans_tpu_torch.ops import decode, encode, lane_codec, place
+    n = len(x)
+    rec = find_pseudo_record(x, kind)
+    codec = PseudoAdaptive(kind=kind, device=DEVICE)
+    where = f"pseudo_adaptive {kind} on {name}"
+    t0 = time.perf_counter()
+    pe = codec.prepare_encoder(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reset_launches()
+    outs = pe()
+    torch.cuda.synchronize()
+    enc_launches = read_launches()
+    blob = pe.to_bytes(outs)
+    e2e_enc, stage_enc = time.perf_counter() - t0, t1 - t0
+    require(len(blob) == rec["blob_len"]
+            and sha256(blob) == rec["blob_sha256"],
+            f"{where}: container differs from the record: {len(blob)} "
+            "bytes")
+    t0 = time.perf_counter()
+    pd = codec.prepare_decoder(blob)
+    t1 = time.perf_counter()
+    reset_launches()
+    out = pd()
+    torch.cuda.synchronize()
+    dec_launches = read_launches()
+    require(np.array_equal(pd.to_host(out), x), f"{where}: decode is not "
+                                                "exact")
+    e2e_dec, stage_dec = time.perf_counter() - t0, t1 - t0
+    nenc, ndec = len(pe.batches), len(pd.batches)
+    scans = ("encode_scan", "encode_scan_grouped")
+    require(enc_launches[scan] == nenc and enc_launches["place"] == nenc
+            and sum(enc_launches[k] for k in scans) == nenc
+            and sum(enc_launches[k] for k in DECODE_KERNEL.values()) == 0,
+            f"{where}: the encode launched {enc_launches} for {nenc} scan "
+            f"batches")
+    require(dec_launches[dec] == ndec
+            and sum(dec_launches[k] for k in DECODE_KERNEL.values()) == ndec
+            and sum(dec_launches[k] for k in (*scans, "place")) == 0,
+            f"{where}: the decode launched {dec_launches} for {ndec} "
+            f"decode batches")
+    require_launched(where, {**enc_launches, dec: dec_launches[dec]},
+                     (scan, "place", dec))
+    launches = {scan: nenc, "place": nenc, dec: ndec}
+    blocks = sum(len(b[0]) for b in pe.batches)
+
+    # each kernel against its plain version on this staging, then timed
+    errs, plain_ms, runs = {}, {}, {}
+
+    def plain(kname, fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[kname] = plain_ms.get(kname, 0.0) + start.elapsed_time(end)
+        return got
+
+    scan_fn, scan_plain = ((encode.encode_scan_grouped_batch,
+                            lane_codec.encode_scan_grouped_batch_plain)
+                           if scan == "encode_scan_grouped" else
+                           (encode.encode_scan_batch,
+                            lane_codec.encode_scan_batch_plain))
+    dec_fn, dec_plain = {
+        "decode_search": (decode.decode_search_batch,
+                          lane_codec.decode_search_batch_plain),
+        "decode_direct": (decode.decode_direct_batch,
+                          lane_codec.decode_direct_batch_plain),
+        "decode_grouped": (decode.decode_grouped_batch,
+                           lane_codec.decode_grouped_batch_plain)}[dec]
+    moved = {scan: 0, "place": 0, dec: 0}
+    items, depth, T_max = 0, 0, 0
+    for _, b in pe.batches:
+        args = (b.mapped, b.lengths, b.table)
+        packed, states = scan_fn(*args)
+        errs[scan] = max(errs.get(scan, 0), compare(
+            scan, where, (packed, states), plain(scan, scan_plain, *args)))
+        pargs = (packed, b.nb, b.excw, b.lengths)
+        stream, offsets, ends = place.place_batch(*pargs)
+        errs["place"] = max(errs.get("place", 0), compare(
+            "place", where, (stream, offsets),
+            plain("place", lane_codec.place_batch_plain, *pargs)))
+        runs.setdefault(scan, []).append(lambda a=args: scan_fn(*a))
+        runs.setdefault("place", []).append(
+            lambda a=pargs, e=ends: place.place_batch(*a, e))
+        moved[scan] += nbytes(b.mapped, packed, states,
+                              *b.table.device_tensors())
+        moved["place"] += nbytes(packed, b.nb, b.excw, offsets, stream) + 8
+        items += b.mapped.numel()
+        T_max = max(T_max, b.T)
+        if scan == "encode_scan_grouped":
+            depth = max(depth, b.table.largest("depth"))
+    dec_items, dec_depth = 0, 0
+    one_stream = []
+    for batch in pd.batches:
+        d = batch["decoder"]
+        args = (d.stream, d.stream_off, d.states, d.n, d.table, d.T)
+        got = dec_fn(*args)
+        errs[dec] = max(errs.get(dec, 0), compare(
+            dec, where, valid_outputs(got, d.n),
+            valid_outputs(plain(dec, dec_plain, *args), d.n)))
+        runs.setdefault(dec, []).append(lambda a=args: dec_fn(*a))
+        moved[dec] += 4 * got.numel() + nbytes(
+            d.stream, d.stream_off, d.states, d.n, *d.table.device_tensors())
+        dec_items += got.numel()
+        if dec != "decode_direct":
+            dec_depth = max(dec_depth, d.table.largest(
+                "levels" if dec == "decode_grouped" else "depth"))
+        # the same blocks as one-stream decodes: one launch each
+        off = d.stream_off.tolist()
+        for k, nk in enumerate(d.n_sec.tolist()):
+            one_stream.append((d.stream[off[k]:off[k + 1]], d.states[k],
+                               d.table.table(k), nk, d.T))
+    one = {"decode_search": decode.decode_search,
+           "decode_direct": decode.decode_direct,
+           "decode_grouped": decode.decode_grouped}[dec]
+    res = {}
+    for kname, fns in runs.items():
+        ms = cuda_ms(lambda f=fns: [g() for g in f])
+        tab_items = dec_items if kname == dec else items
+        res[kname] = {"max_abs_err": errs[kname], "ms": ms,
+                      "plain_ms": plain_ms[kname], "launches":
+                      launches[kname], **bound(
+                          kname, moved[kname], tab_items,
+                          dec_depth if kname == dec else depth)}
+    res[scan]["chain_bound_ms"] = T_max * step_ns / 1e6
+    enc_ms, dec_ms = cuda_ms(pe), cuda_ms(pd)
+    one_ms = cuda_ms(lambda: [one(*a) for a in one_stream])
+    print(f"{card} {where}, n=2^{n.bit_length() - 1}, {blocks} lane blocks "
+          f"of {PSEUDO_BLOCK}: {len(blob)} bytes, {8 * len(blob) / n:.4f} "
+          f"bpi, sha256 {sha256(blob)[:12]}; encode call launched {scan} "
+          f"x{nenc}, place x{nenc}; decode call {dec} x{ndec} "
+          f"({', '.join(pd.engines)}); e2e (host clock, host data) encode "
+          f"{e2e_enc:.3f} s ({stage_enc:.3f} s of it the model and "
+          f"staging), decode {e2e_dec:.3f} s ({stage_dec:.3f} s staging); "
+          f"prepared encode {n / enc_ms / 1e3:.1f}M ints/s ({enc_ms:.3f} "
+          f"ms), prepared decode {n / dec_ms / 1e3:.1f}M ints/s "
+          f"({dec_ms:.3f} ms); the {len(one_stream)} blocks as one-stream "
+          f"decodes, one launch each: {one_ms:.3f} ms ({one_ms / dec_ms:.1f}x "
+          f"the batched decode)")
+    torch.cuda.empty_cache()
+    return {"kernels": res, "enc_ms": enc_ms, "dec_ms": dec_ms,
+            "one_stream_ms": one_ms, "e2e_enc": e2e_enc,
+            "e2e_dec": e2e_dec, "bytes": len(blob)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
     from ans_tpu_torch.csrc import build
-    from ans_tpu_torch.inputs import bench_input, dense_input, zipf20_input
+    from ans_tpu_torch.inputs import (bench_input, dense_input,
+                                      zipf20_input, zipf125_input)
     from ans_tpu_torch.models.ans import AnsFold, AnsInt
     from ans_tpu_torch.models.bytes import AnsByte, Vbyte
 
@@ -1180,7 +1391,27 @@ def main() -> int:
     merge_errs(errs, wres)
     print_batched(card, f"ANSfold-2 in {BLOCK_D_WIDE} sections, zipf20, "
                         f"n=2^25", wres)
-    del z20
+
+    # 11. pseudo-adaptive (ATFP) at full width: 256 blocks of 2^17 values,
+    # S = 32, each block its own model, one launch a kernel a batch
+    print(f"golden ATFP containers: {check_golden_pseudo()} re-encoded and "
+          f"decoded exactly")
+    pseudo, cells = {}, {"zipf20": z20}
+    for data, pkind, scan, dec in PSEUDO_CELLS:
+        if data not in cells:
+            cells[data] = zipf125_input(FULL_N)
+        r = run_pseudo(card, data, pkind, cells[data], scan, dec, step_ns)
+        pseudo[f"{data} {pkind}"] = r
+        merge_errs(errs, r["kernels"])
+        for kname, k in r["kernels"].items():
+            chain = (f", chain bound {k['chain_bound_ms']:.4f} ms"
+                     if "chain_bound_ms" in k else "")
+            print(f"{card} {kname}, pseudo_adaptive {pkind} on {data} "
+                  f"(blocks of {PSEUDO_BLOCK}, a model each), "
+                  f"{k['launches']} launch(es): {k['ms']:.3f} ms, plain "
+                  f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms by "
+                  f"{k['bound_by']}{chain}, max_abs_err {k['max_abs_err']}")
+    del z20, cells
 
     launches = {name: main_run["launches"][name]
                 for name in ("encode_scan", "place", "decode_search")}
@@ -1213,6 +1444,15 @@ def main() -> int:
         batched[name]["launches"] = sum(
             run[key][name] for run in blocked.values()
             for key in ("enc_launches", "dec_launches"))
+    # each path kernel's launches on a model a stream: ms and bound at
+    # D = 256 blocks, S = 32, T = 4096, by cell
+    per_model = {}
+    for cell, run in pseudo.items():
+        for name, r in run["kernels"].items():
+            per_model.setdefault(name, {})[cell] = {
+                k: r[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                  "bound_ms", "bound_by", "chain_bound_ms",
+                                  "launches") if k in r}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [
@@ -1224,6 +1464,7 @@ def main() -> int:
          **({"chain_bound_ms": timed[name]["chain_bound_ms"]}
             if "chain_bound_ms" in timed[name] else {}),
          **({"batched": batched[name]} if name in batched else {}),
+         **({"pseudo": per_model[name]} if name in per_model else {}),
          **({"note": "a probe: its work is the latency it measures, so it "
                      "has no work bound; no PyTorch call computes a "
                      "dependency chain of one primitive"}

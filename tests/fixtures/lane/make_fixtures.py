@@ -2,7 +2,7 @@
 
     JAX_PLATFORMS=cpu python tests/fixtures/lane/make_fixtures.py \
         [--full-width] [--grouped-full-width] [--bytes-full-width]
-        [--msb-full-width] [--blocked-full-width]
+        [--msb-full-width] [--blocked-full-width] [--pseudo-full-width]
         [--full-width-input FILE --numpy VERSION [--kind KIND]]
 
 Writes, next to this file:
@@ -41,7 +41,16 @@ Writes, next to this file:
                               the portable engine on a CPU mesh of 32
                               devices (every section stays under the 3 MB
                               section cap, so the production engine writes
-                              the same bytes).
+                              the same bytes);
+  * *.atfp, pseudo.json       ans_tpu PseudoAdaptive containers (ATFP) of
+                              the small inputs, lane and compat engines,
+                              and their record: block size, kind, lanes,
+                              engine, n, sha256;
+  * fullwidth_pseudo.json     (--pseudo-full-width) PseudoAdaptive
+                              containers at the default block size 2^17
+                              and lane count (S = 32): int and msb on
+                              zipf20, int on zipf125 (Zipf(1.25) over
+                              2^28 values less one, n = 2^25, seed 42).
 
 numpy's zipf sampler is not stable across numpy releases (2.0.2 and 2.3.5
 draw different values from one seed), so the full-width records keep one
@@ -98,6 +107,15 @@ BLOBS = (
 # (container file, input file, method, sections, lanes)
 CONTAINERS = (
     ("zipf20k.fold2.d2.atfb", "zipf20k.u32", "ANSfold-2", 2, None),
+)
+
+# (container file, input file, block size, kind, lanes, engine)
+PSEUDO = (
+    ("zipf20k.pa.int.compat.atfp", "zipf20k.u32", 4096, "int", None,
+     "auto"),
+    ("zipf20k.pa.msb.lane.atfp", "zipf20k.u32", 4096, "msb", 32, "lane"),
+    ("zipf60k.pa.int.lane.atfp", "zipf60k.u32", 1 << 16, "int", None,
+     "auto"),
 )
 
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
@@ -162,6 +180,14 @@ def dense22_input() -> np.ndarray:
     head = np.tile(head, -(-(n // 2) // len(head)))[: n // 2]
     tail = zipf(np.random.default_rng(8), n - n // 2, 1 << 16, 1.5) - 1
     return np.concatenate([head.astype(np.uint32), tail])
+
+
+def zipf125_input() -> np.ndarray:
+    """n = 2^25 Zipf(1.25) draws over 2^28 values less one (seed 42),
+    drawn by rejection-inversion, the same under numpy 2.0.2 and 2.3.5."""
+    from ans_tpu.utils.zipf import zipf
+    return zipf(np.random.default_rng(FULL_SEED), FULL_N, 1 << 28,
+                1.25) - 1
 
 
 def full_width_input() -> np.ndarray:
@@ -238,6 +264,10 @@ def main(argv=None) -> None:
                     help="add this numpy's zipf20 stream's BlockCodec "
                          "containers (ANSfold-2, ANSfold-7; D = 32) to "
                          "fullwidth_blocked.json")
+    ap.add_argument("--pseudo-full-width", action="store_true",
+                    help="add this numpy's zipf20 and zipf125 streams' "
+                         "PseudoAdaptive containers (int and msb on zipf20, "
+                         "int on zipf125) to fullwidth_pseudo.json")
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -269,6 +299,17 @@ def main(argv=None) -> None:
     (HERE / "blocked.json").write_text(json.dumps(containers, indent=1)
                                        + "\n")
 
+    pseudo = []
+    for blob_name, inp, bs, kind, lanes, engine in PSEUDO:
+        from ans_tpu.models.pseudo_adaptive import PseudoAdaptive
+        x = inputs[inp]
+        blob = PseudoAdaptive(bs, kind, lanes, engine).encode(x)
+        (HERE / blob_name).write_bytes(blob)
+        pseudo.append({"blob": blob_name, "input": inp, "block_size": bs,
+                       "kind": kind, "lanes": lanes, "engine": engine,
+                       "n": len(x), "sha256": sha256(blob)})
+    (HERE / "pseudo.json").write_text(json.dumps(pseudo, indent=1) + "\n")
+
     if args.full_width:
         add_full_width("bench", full_width_input(), np.__version__)
     if args.grouped_full_width:
@@ -281,6 +322,9 @@ def main(argv=None) -> None:
                        ("ANSmsb", "ANSrfold-2"))
     if args.blocked_full_width:
         add_blocked_full_width(zipf20_input(), np.__version__)
+    if args.pseudo_full_width:
+        add_pseudo_full_width({"zipf20": zipf20_input(),
+                               "zipf125": zipf125_input()}, np.__version__)
     if args.full_width_input:
         import lzma
         raw = lzma.decompress(Path(args.full_width_input).read_bytes())
@@ -406,6 +450,40 @@ def add_blocked_full_width(x: np.ndarray, numpy_version: str) -> None:
                          != (input_sha, method)]
         rec["inputs"].append(entry)
     path.write_text(json.dumps(rec, indent=1) + "\n")
+
+
+# (input, kind) of the full-width ATFP records
+PSEUDO_CELLS = (("zipf20", "int"), ("zipf20", "msb"), ("zipf125", "int"))
+
+
+def add_pseudo_full_width(xs: dict, numpy_version: str) -> None:
+    """The PseudoAdaptive containers of PSEUDO_CELLS at the default block
+    size and lane count, merged into fullwidth_pseudo.json (keyed by the
+    input's sha256 and the kind)."""
+    import struct
+    from ans_tpu.models.pseudo_adaptive import PseudoAdaptive
+    path = HERE / "fullwidth_pseudo.json"
+    rec = (json.loads(path.read_text()) if path.exists() else {
+        "generators": {
+            "zipf20": ZIPF20_HEADER["generators"]["zipf20"],
+            "zipf125": "ans_tpu.utils.zipf.zipf(np.random.default_rng(42), "
+                       "2**25, 2**28, 1.25) - 1"},
+        "block_size": 1 << 17, "lanes": None, "engine": "auto",
+        "inputs": []})
+    for name, kind in PSEUDO_CELLS:
+        x = xs[name]
+        input_sha = sha256(x.tobytes())
+        blob = PseudoAdaptive(kind=kind).encode(x)
+        blocks = struct.unpack_from("<IBBBBII", blob)
+        entry = {"input": name, "kind": kind, "numpy": numpy_version,
+                 "input_sha256": input_sha, "blob_len": len(blob),
+                 "blob_sha256": sha256(blob), "n": int(blocks[5]),
+                 "block_size": int(blocks[6])}
+        rec["inputs"] = [e for e in rec["inputs"]
+                         if (e["input_sha256"], e["kind"])
+                         != (input_sha, kind)]
+        rec["inputs"].append(entry)
+        path.write_text(json.dumps(rec, indent=1) + "\n")
 
 
 BYTE_METHODS = ("vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS")

@@ -30,7 +30,11 @@ chain against its plain version; for the batched K1-K6 batches of 1 to
 133 streams of unequal length with an empty one, at 32 to 16384 lanes,
 both decode instances and K2's chain across the streams, the batch of
 one against the one-stream wrappers, and BlockCodec on the card against
-the CPU's container.
+the CPU's container; for K1 and K3-K6 batches of streams with a model
+each (frames of log2m 12 to 17, renorm rounds 2 and 3, exception bytes
+or none, K6 fed symbol ids and ranks, K5 with and without a per-rank
+table) at 32 and 4096 lanes, and PseudoAdaptive on the card against the
+CPU's container, one launch a kernel a batch.
 """
 
 import hashlib
@@ -1313,13 +1317,13 @@ def test_batched_kernels_match_plain(cuda, kind, D, S, T):
     D = 133, S = 32 over a thousand chunks)."""
     enc, dec, (m, nb, ex), n, x, _ = _batch_stage(kind, D, T, S, cuda, D)
     scan, scan_plain = ((encode.encode_scan_grouped_batch,
-                         lane_codec.encode_scan_grouped_plain)
+                         lane_codec.encode_scan_grouped_batch_plain)
                         if kind == "grouped" else
                         (encode.encode_scan_batch,
-                         lane_codec.encode_scan_plain))
+                         lane_codec.encode_scan_batch_plain))
     counts = (encode.launches + encode.grouped_launches, place.launches)
     packed, states = scan(m, n, enc)
-    pp, ps = lane_codec.scan_batch_plain(scan_plain, m, n, enc)
+    pp, ps = scan_plain(m, n, enc)
     assert torch.equal(packed, pp) and torch.equal(states, ps)
     stream, offsets, ends = place.place_batch(packed, nb, ex, n)
     ws, wo = lane_codec.place_batch_plain(packed, nb, ex, n)
@@ -1331,16 +1335,15 @@ def test_batched_kernels_match_plain(cuda, kind, D, S, T):
     assert torch.equal(place.place_batch(packed, nb, ex, n, ends)[0], stream)
     stream_off = torch.cat([offsets[:, 0], offsets[-1:, T]]).contiguous()
     engines = (("grouped", decode.decode_grouped_batch,
-                lane_codec.decode_grouped_plain),) if kind == "grouped" else (
-        ("search", decode.decode_search_batch,
-         lane_codec.decode_search_plain),
-        ("direct", decode.decode_direct_batch,
-         lane_codec.decode_direct_plain))
+                lane_codec.decode_grouped_batch_plain),) if kind == "grouped" \
+        else (("search", decode.decode_search_batch,
+               lane_codec.decode_search_batch_plain),
+              ("direct", decode.decode_direct_batch,
+               lane_codec.decode_direct_batch_plain))
     for name, kernel, plain in engines:
         tab = tables.to_device(tables.materialize_slots(dec)
                                if name == "direct" else dec, cuda)
-        want = lane_codec.decode_batch_plain(plain, stream, stream_off,
-                                             states, tab, n, T)
+        want = plain(stream, stream_off, states, n, tab, T)
         for instance in (None, "global"):
             before = (decode.launches + decode.direct_launches
                       + decode.grouped_launches)
@@ -1462,3 +1465,170 @@ def test_blocked_on_card_equals_cpu(cuda, method, D):
             + decode.grouped_launches) == tuple(c + 1 for c in counts)
     pe = codec.prepare_encoder(x)
     assert pe.to_bytes(*pe()) == want
+
+
+# --------------------------------------------------------------------------
+# the batched kernels over streams with a model each: K1/K6, K2 and K3/K4/K5
+# on a ModelBatch (ops/model_batch.py; the blocks of a pseudo-adaptive
+# container), and PseudoAdaptive on the card
+# --------------------------------------------------------------------------
+
+def _ranks(v):
+    return np.searchsorted(np.unique(v), v).astype(np.uint32)
+
+
+def _model_streams(route):
+    """Streams of one scan table kind, each with its own model, of unequal
+    length and frames of different log2m, renorm rounds (NR 2 and 3) and
+    exception rounds: a list of (values, host decode table, scan table on
+    the CPU, syms, nb, excw)."""
+    from ans_tpu_torch.inputs import zipf_sample
+    from ans_tpu_torch.models.ans import AnsMsb, scan_table, to_ranks
+    z125 = zipf_sample(np.random.default_rng(42), 1 << 17, 1 << 28,
+                       1.25) - 1
+    z20 = zipf_sample(np.random.default_rng(0), 1 << 17, 1 << 20)
+    if route == "value":
+        inputs = [(AnsInt, _ranks(z125[:1 << 13])),   # log2m 13
+                  (AnsInt, _ranks(z125[:1 << 16])),   # escape, 16
+                  (AnsInt, _ranks(z125)),             # escape, 17: NR 3
+                  (AnsMsb, z125[:5000])]              # msb, 12
+    else:
+        from ans_tpu_torch.inputs import dense_input
+        inputs = [(AnsInt, _ranks(z20[:1 << 16])),    # escape, 16
+                  (AnsInt, _ranks(z20)),              # escape, 17: NR 3
+                  (AnsInt, np.random.default_rng(1).integers(
+                      0, 9000, size=1 << 15).astype(np.uint32)),  # raw
+                  (AnsInt, dense_input(1 << 14))]     # raw, 14
+    out = []
+    for cls, v in inputs:
+        codec = cls(lanes=32, device="cpu")
+        mapped, k, low, pfreqs, ffreqs, raw, _ = codec._enc_inputs(v)
+        table, rank_of = scan_table(ffreqs, raw, "cpu")
+        out.append((v, codec._table(pfreqs), table,
+                    to_ranks(mapped, rank_of), k, low))
+    return out
+
+
+@pytest.mark.parametrize("route", ["value", "grouped"])
+@pytest.mark.parametrize("S", [32, 4096])
+def test_per_model_batched_kernels_match_plain(cuda, route, S):
+    """K1 or K6, K2 and the decodes (K3 and K4, or K5 and K4; each in
+    both instances) over a ModelBatch of streams with a model each (frames
+    of log2m 12 to 17, NR 2 and 3, exception bytes or none, K6's streams
+    fed symbol ids or ranks, K5's with and without a per-rank table),
+    against the batched plain versions on the same batch, one launch each;
+    the batch decodes to its input."""
+    from ans_tpu_torch.ops import model_batch
+    streams = _model_streams(route)
+    D = len(streams)
+    n_np = np.array([len(s[0]) for s in streams], np.int64)
+    T = int(max(lane_codec.lane_steps(int(k), S) for k in n_np))
+    staged = []
+    for i in (3, 4, 5):
+        t = torch.zeros((D, T * S), dtype=torch.int32)
+        for d, s in enumerate(streams):
+            t[d, :len(s[0])] = s[i]
+        staged.append(t.reshape(D, T, S).to(cuda))
+    m, nb, ex = staged
+    n = torch.from_numpy(n_np).to(cuda)
+    enc = model_batch.stack([s[2] for s in streams], cuda)
+    assert len(set(enc.column("log2m").tolist())) == D
+    grouped = route == "grouped"
+    scan, plain = ((encode.encode_scan_grouped_batch,
+                    lane_codec.encode_scan_grouped_batch_plain) if grouped
+                   else (encode.encode_scan_batch,
+                         lane_codec.encode_scan_batch_plain))
+    before = encode.grouped_launches if grouped else encode.launches
+    packed, states = scan(m, n, enc)
+    assert (encode.grouped_launches if grouped
+            else encode.launches) == before + 1
+    pp, ps = plain(m, n, enc)
+    assert torch.equal(packed, pp) and torch.equal(states, ps)
+    stream, offsets, ends = place.place_batch(packed, nb, ex, n)
+    ws, wo = lane_codec.place_batch_plain(packed, nb, ex, n)
+    assert torch.equal(stream, ws) and torch.equal(offsets, wo)
+    stream_off = torch.cat([offsets[:, 0], offsets[-1:, T]]).contiguous()
+    engines = ("grouped", "direct") if grouped else ("search", "direct")
+    kernels = {"search": (decode.decode_search_batch,
+                          lane_codec.decode_search_batch_plain),
+               "direct": (decode.decode_direct_batch,
+                          lane_codec.decode_direct_batch_plain),
+               "grouped": (decode.decode_grouped_batch,
+                           lane_codec.decode_grouped_batch_plain)}
+    for engine_name in engines:
+        keep = [d for d, s in enumerate(streams)
+                if engine_name != "direct" or tables.direct_fits(s[1])]
+        assert len(keep) >= 2
+        sel = torch.tensor(keep, device=cuda)
+        part = torch.cat([stream[int(stream_off[d]):int(stream_off[d + 1])]
+                          for d in keep])
+        off = torch.cat([torch.zeros(1, dtype=torch.int64, device=cuda),
+                         torch.cumsum(stream_off[sel + 1] - stream_off[sel],
+                                      0)])
+        dec = model_batch.stack([engine.dec_device_table(
+            streams[d][1], engine_name, "cpu") for d in keep], cuda)
+        if engine_name != "direct":
+            assert set(dec.column("NR").tolist()) == {2, 3}
+        kernel, plain_batch = kernels[engine_name]
+        want = plain_batch(part, off, states[sel], n[sel], dec, T)
+        for instance in (None, "global"):
+            got = kernel(part, off, states[sel], n[sel], dec, T,
+                         instance=instance)
+            np.testing.assert_array_equal(_valid(got, n[sel]),
+                                          _valid(want, n[sel]))
+        for d, i in enumerate(keep):
+            vals = got[d].reshape(-1)[:len(streams[i][0])].cpu().numpy()
+            np.testing.assert_array_equal(vals.view(np.uint32),
+                                          streams[i][0])
+
+
+@pytest.mark.parametrize("bs,kind,lanes,eng", [
+    (4096, "msb", 32, "lane"), (4096, "int", None, "lane"),
+    (1 << 16, "int", 32, "auto"), (1 << 16, "msb", 4096, "auto")])
+def test_pseudo_adaptive_on_card_equals_cpu(cuda, bs, kind, lanes, eng):
+    """PseudoAdaptive on the card writes the container the CPU's plain
+    versions write (single-symbol blocks, a ragged last block, blocks of
+    the escape onto the grouped layout and onto value order among them),
+    decodes it exactly, and each encode is one scan launch and one
+    placement launch per scan batch, each decode one decode launch per
+    decode batch."""
+    from ans_tpu_torch.inputs import zipf_sample
+    from ans_tpu_torch.models.pseudo_adaptive import (PseudoAdaptive,
+                                                      _encode_batches)
+    z20 = zipf_sample(np.random.default_rng(0), 3 << 16, 1 << 20)
+    x = np.concatenate([np.full(bs, 77, np.uint32), z20,
+                        zipf_sample(np.random.default_rng(42), 1 << 16,
+                                    1 << 28, 1.25) - 1, z20[:5000]])
+    want = PseudoAdaptive(bs, kind, lanes, eng, device="cpu").encode(x)
+    codec = PseudoAdaptive(bs, kind, lanes, eng, device=cuda)
+    _, blocks = codec._stage(x)
+    nbatch = len(_encode_batches(blocks, "cpu"))
+    counts = (encode.launches + encode.grouped_launches, place.launches,
+              decode.launches + decode.direct_launches
+              + decode.grouped_launches)
+    blob = codec.encode(x)
+    assert blob == want
+    pd = codec.prepare_decoder(blob)
+    np.testing.assert_array_equal(codec.decode(blob), x)
+    assert (encode.launches + encode.grouped_launches, place.launches,
+            decode.launches + decode.direct_launches
+            + decode.grouped_launches) == (counts[0] + nbatch,
+                                           counts[1] + nbatch,
+                                           counts[2] + len(pd.batches))
+    np.testing.assert_array_equal(pd.to_host(pd()), x)
+    pe = codec.prepare_encoder(x)
+    assert pe.to_bytes(pe()) == want
+
+
+def test_pseudo_golden_containers_on_card(cuda):
+    """The committed ATFP containers written by ans_tpu (pseudo.json)
+    re-encode to the same bytes on the card and decode exactly."""
+    from ans_tpu_torch.models.pseudo_adaptive import PseudoAdaptive
+    recs = json.loads((LANE_FIXTURES / "pseudo.json").read_text())
+    for rec in recs:
+        x = np.fromfile(LANE_FIXTURES / rec["input"], dtype="<u4")
+        blob = (LANE_FIXTURES / rec["blob"]).read_bytes()
+        codec = PseudoAdaptive(rec["block_size"], rec["kind"], rec["lanes"],
+                               rec["engine"], device=cuda)
+        assert codec.encode(x) == blob
+        np.testing.assert_array_equal(codec.decode(blob), x)

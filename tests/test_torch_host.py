@@ -1,9 +1,9 @@
 """ans_tpu_torch host layers against ans_tpu: the NumPy copies of the
 constants, the frame search and the preludes, the interpolative coder,
-the byte coder's model, the lane-count policy, the fmt-2 framing, the
-lane tables, the grouped slot layout and the tail-escape plan must
-equal the reference's exactly, and the package must import with neither
-JAX nor ans_tpu."""
+the byte coder's model, the compat coders, the lane-count policy, the
+fmt-2 framing, the lane tables, the grouped slot layout and the
+tail-escape plan must equal the reference's exactly, and the package
+must import with neither JAX nor ans_tpu."""
 
 import os
 import re
@@ -36,7 +36,7 @@ from ans_tpu_torch.models import config, framing
 from ans_tpu_torch.ops import escape, grouped, tables
 from ans_tpu_torch.parallel import block_runtime
 from ans_tpu_torch.reference_model import (byte_model, interp, mappings,
-                                           model, vbyte)
+                                           model, rans_compat, vbyte)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -297,7 +297,11 @@ def test_imports_without_jax():
                 "ans_tpu_torch.bench_crossover", "ans_tpu_torch.constants",
                 "ans_tpu_torch.profile_idle", "ans_tpu_torch.probe",
                 "ans_tpu_torch.parallel",
-                "ans_tpu_torch.parallel.block_runtime"} <= set(names), names
+                "ans_tpu_torch.parallel.block_runtime",
+                "ans_tpu_torch.models.pseudo_adaptive",
+                "ans_tpu_torch.ops.model_batch",
+                "ans_tpu_torch.reference_model.rans_compat"} <= set(names), \
+            names
         import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
@@ -316,6 +320,10 @@ def test_imports_without_jax():
         for name in ("ANSfold-2", "ANSrfold-2"):
             block = BlockCodec(name, 3, 32, device="cpu")
             assert (block.decode(block.encode(x)) == x).all()
+        for engine in ("compat", "lane"):
+            pa = models.get("pseudo_adaptive", device="cpu")
+            pa.block_size, pa.engine = 1000, engine
+            assert (pa.decode(pa.encode(x)) == x).all()
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in ("jax", "jaxlib", "ans_tpu"))
         assert not loaded, loaded
@@ -413,6 +421,53 @@ def test_adjust_freqs_and_prelude_copies(datasets, dataset, h_approx, u16,
             back, used = load(blob + b"tail")
             np.testing.assert_array_equal(back, want)
             assert used == len(blob)
+
+
+COMPAT_DATASETS = ["zipf12", "geometric", "uniform_small", "tiny",
+                   "single_sym"]
+
+
+@pytest.mark.parametrize("dataset", COMPAT_DATASETS)
+@pytest.mark.parametrize("coder", ["AnsInt", "AnsSint-5", "AnsMsb",
+                                   "AnsSmsb-80"])
+def test_rans_compat_copies(datasets, dataset, coder):
+    """The compat coders (the copy without ans_tpu's C++ fast path) write
+    ans_tpu's bytes and each decodes the other's."""
+    name, _, h = coder.partition("-")
+    args = (int(h),) if h else ()
+    port, ref = getattr(rans_compat, name)(*args), getattr(jcompat, name)(
+        *args)
+    x = datasets[dataset]
+    blob = port.encode(x)
+    assert blob == ref.encode(x)
+    np.testing.assert_array_equal(port.decode(blob, len(x)), x)
+    np.testing.assert_array_equal(ref.decode(blob, len(x)), x)
+    assert port.name == ref.name
+
+
+def test_rans_compat_helpers():
+    """The engine's helpers equal ans_tpu's: the encode order of the four
+    states, the encode and decode tables, the fold undo and the histogram;
+    a corrupt prelude's frame raises."""
+    for n in (0, 1, 5, 8, 13):
+        assert list(rans_compat._state_index_iter(n)) == list(
+            jcompat._state_index_iter(n))
+    nf = np.array([3, 0, 5, 8], np.uint32)
+    assert rans_compat._enc_tables(nf) == jcompat._enc_tables(nf)
+    for a, b in zip(rans_compat._dec_tables(nf), jcompat._dec_tables(nf)):
+        np.testing.assert_array_equal(a, b)
+    buf = bytes(range(40))
+    high, nb = np.array([100, 200, 300]), np.array([0, 1, 2])
+    undo, jundo = (rans_compat._make_fold_undo(buf, high, nb),
+                   jcompat._make_fold_undo(buf, high, nb))
+    for sym in range(3):
+        assert undo(sym, 30) == jundo(sym, 30)
+    x = np.array([4, 4, 1, 9], np.uint32)
+    np.testing.assert_array_equal(rans_compat._hist(x, 12),
+                                  jcompat._hist(x, 12))
+    with pytest.raises(ValueError, match="power of two"):
+        rans_compat.interleaved_decode(b"\0" * 40, 4, np.array([3, 2]))
+    assert rans_compat.NUM_STATES == jcompat.NUM_STATES
 
 
 def test_model_degenerate_inputs():

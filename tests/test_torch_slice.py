@@ -128,7 +128,8 @@ def test_registry():
         + [f"ANSrfold-{f}" for f in range(1, 9)]
         + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
         + [f"ANSsmsb-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
-        + ["vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS"])
+        + ["vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS",
+           "pseudo_adaptive"])
     codec = models.get("ANSfold-3", device="cpu")
     assert codec.fidelity == 3 and codec.name == "ANSfold-3"
     assert models.get("ANSfold-3", lanes=64, device="cpu").lanes == 64
@@ -164,11 +165,12 @@ def test_registry_msb_and_rfold_methods(name, ref):
 
 
 @pytest.mark.parametrize("name", ["vbytefse", "streamvbytehuffzero", "shuff",
-                                  "pseudo_adaptive", "no-such-method"])
+                                  "optpfor", "no-such-method"])
 def test_unported_names_raise(name):
     """(vbyte and streamvbyteANS stood here until the byte path was
-    ported, and ANSmsb, ANSsmsb-5 and ANSrfold-2 until this slice; the
-    host-codec composites took their place.)"""
+    ported, ANSmsb, ANSsmsb-5 and ANSrfold-2 until the msb and rfold
+    methods were, and pseudo_adaptive until the ATFP container was; host
+    codecs took their places.)"""
     with pytest.raises(KeyError, match="ROADMAP"):
         models.get(name, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
