@@ -1,17 +1,27 @@
 """Codec registry of the port (counterpart of ans_tpu/models/__init__.py).
 
 Every codec exposes `encode(values) -> bytes` and
-`decode(buf, n) -> np.uint32 array` and runs on the device it was built
-for.  Ported so far: the lane-engine ANS, ANSsint-h, ANSfold-f, ANSmsb,
-ANSsmsb-h and ANSrfold-f methods, the byte path (vbyte, streamvbyte,
-vbyteANS, streamvbyteANS) and pseudo_adaptive (the ATFP block container,
-models/pseudo_adaptive.py); any other name of ans_tpu's registry raises
-KeyError naming the ROADMAP item that will port it.  The blocked
-container is ans_tpu_torch.parallel.BlockCodec.
+`decode(buf, n) -> np.uint32 array`.  Two engines per ANS method:
+
+  * "lane"   - the S-lane wire format, run on the device the codec was
+               built for (the CUDA kernels, or their plain versions on
+               the CPU)
+  * "compat" - the C++ reference's own wire format, coded on the host
+               (reference_model/rans_compat.py, in the host library)
+
+Ported so far: ANS, ANSsint-h, ANSfold-f, ANSmsb, ANSsmsb-h and
+ANSrfold-f under both engines, shuff under the compat engine
+(reference_model/shuff_compat.py), and under either engine the byte path
+(vbyte, streamvbyte, vbyteANS, streamvbyteANS) and pseudo_adaptive (the
+ATFP block container, models/pseudo_adaptive.py); any other name of
+ans_tpu's registry raises KeyError naming the ROADMAP item that will port
+it.  The blocked container is ans_tpu_torch.parallel.BlockCodec.
 """
 
 from __future__ import annotations
 
+from ..reference_model import rans_compat as _rc
+from ..reference_model import shuff_compat as _shuff
 from . import ans as _lane
 from . import bytes as _bytes
 from . import config
@@ -35,6 +45,22 @@ _LANE = {
         f, lanes=lanes, device=device)) for f in range(1, 9)},
 }
 
+# the reference's wire, coded on the host: name -> codec factory (lanes and
+# device unused)
+_COMPAT = {
+    "ANS": lambda lanes, device: _rc.AnsInt(),
+    "ANSmsb": lambda lanes, device: _rc.AnsMsb(),
+    **{f"ANSfold-{f}": (lambda lanes, device, f=f: _rc.AnsFold(f))
+       for f in range(1, 9)},
+    **{f"ANSrfold-{f}": (lambda lanes, device, f=f: _rc.AnsReorderFold(f))
+       for f in range(1, 9)},
+    **{f"ANSsint-{h}": (lambda lanes, device, h=h: _rc.AnsSint(h))
+       for h in H_VALUES},
+    **{f"ANSsmsb-{h}": (lambda lanes, device, h=h: _rc.AnsSmsb(h))
+       for h in H_VALUES},
+}
+
+
 # the byte path: splitters (no lanes) and split + AnsByte composites
 _BYTE = {
     "vbyte": lambda lanes, device: _bytes.Vbyte(device=device),
@@ -52,30 +78,43 @@ _BLOCKS = {
 
 # name prefix -> where it is queued (ROADMAP.md, queue 1)
 _UNPORTED = (
-    ("", "queue 1 item 8 (the host codecs: fse, huffzero and their "
-         "composites, shuff, arith, optpfor, entropy)"),
+    ("", "queue 1 item 8, the host codecs: shuff under the lane engine, "
+         "fse, huffzero and their composites, arith, optpfor, entropy"),
 )
 
 
-def _lookup(name: str, registry=None):
-    registry = {**_LANE, **_BYTE, **_BLOCKS} if registry is None else registry
+def _registry(engine: str) -> dict:
+    # shuff under the compat engine is the reference's canonical Huffman
+    # wire; ans_tpu's lane engine has another shuff codec, not ported yet
+    ans = {"lane": _LANE, "compat": {
+        **_COMPAT, "shuff": lambda lanes, device: _shuff.ShuffCompat()}}
+    if engine not in ans:
+        raise KeyError(f"unknown engine {engine!r}; known: {sorted(ans)}")
+    return {**ans[engine], **_BYTE, **_BLOCKS}
+
+
+def _lookup(name: str, registry=None, engine: str = "lane"):
+    registry = _registry(engine) if registry is None else registry
     if name in registry:
         return registry[name]
     if name in _BYTE or name in _BLOCKS:
         raise KeyError(f"{name!r} is not a lane-format ANS method")
     todo = next(item for prefix, item in _UNPORTED if name.startswith(prefix))
     raise KeyError(f"method {name!r} is not ported to ans_tpu_torch yet "
-                   f"(ROADMAP {todo}); ported: {available()}")
+                   f"(ROADMAP {todo}); ported under the {engine} engine: "
+                   f"{available(engine)}")
 
 
-def available():
-    return sorted({**_LANE, **_BYTE, **_BLOCKS})
+def available(engine: str = "lane"):
+    return sorted(_registry(engine))
 
 
-def get(name: str, *, device, lanes: int | None = None):
-    """The codec `name` running on `device` (e.g. "cuda" or "cpu"),
-    writing `lanes` lanes (None: the default lane count of the input)."""
-    return _lookup(name)(lanes, device)
+def get(name: str, *, device, lanes: int | None = None,
+        engine: str = "lane"):
+    """The codec `name` under `engine` ("lane" or "compat"); a lane codec
+    runs on `device` (e.g. "cuda" or "cpu") and writes `lanes` lanes
+    (None: the default lane count of the input)."""
+    return _lookup(name, engine=engine)(lanes, device)
 
 
 def prepare_decoder(name: str, blob: bytes, n: int, *, device,

@@ -1,6 +1,8 @@
 """Binary interpolative coding of strictly-increasing u32 sequences.
-A copy of ans_tpu/reference_model/interp.py's pure-Python bodies (without
-its optional C++ fast path), held equal to it by tests/test_torch_host.py.
+A copy of ans_tpu/reference_model/interp.py, held equal to it by
+tests/test_torch_host.py: its C++ fast path goes through the port's own
+host library (ans_tpu_torch/native), and each pure-Python body is that
+call's plain version (it runs when `_native` is None).
 
 Behavioral re-expression of the reference's recursive interpolative coder
 (reference: include/interp.hpp:25-119): centered minimal-binary codes
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..native import deferred as _native
 from .bitio import BitReader, BitWriter
 
 
@@ -65,6 +68,9 @@ def encode(seq, n: int, u: int) -> bytes:
     values are shifted by +1 ("we don't encode 0") and coded in [1, u+1].
     Returns the byte stream (whole little-endian u32 words).
     """
+    if _native is not None:
+        return _native.interp_encode(
+            np.ascontiguousarray(seq, dtype=np.uint64), n, int(u))
     w = BitWriter()
     # stack of (start, n, low, high); mid-first pre-order like the recursion
     stack = [(0, n, 1, u + 1)]
@@ -85,6 +91,8 @@ def encode(seq, n: int, u: int) -> bytes:
 
 def decode(buf: bytes, n: int, u: int, bit_offset: int = 0):
     """Decode n values over universe u; returns (values, words_consumed)."""
+    if _native is not None:
+        return _native.interp_decode(bytes(buf), n, int(u), bit_offset)
     r = BitReader(buf, bit_offset)
     out = [0] * n
     stack = [(0, n, 1, u + 1)]

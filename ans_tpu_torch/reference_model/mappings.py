@@ -75,6 +75,18 @@ def fold_map(x, fidelity: int):
     return ((x >> (np.uint32(8) * k)) + step * k).astype(np.uint32)
 
 
+def fold_exceptions(x, fidelity: int):
+    """(k, bytes) where bytes is an (n,3) u8 array of the stripped low
+    bytes in emission order (lowest byte first); only bytes[:, :k] valid."""
+    x = np.asarray(x, dtype=np.uint32)
+    k = fold_exception_count(x, fidelity)
+    b = np.empty(x.shape + (3,), dtype=np.uint8)
+    b[..., 0] = (x & 0xFF).astype(np.uint8)
+    b[..., 1] = ((x >> np.uint32(8)) & 0xFF).astype(np.uint8)
+    b[..., 2] = ((x >> np.uint32(16)) & 0xFF).astype(np.uint8)
+    return k, b
+
+
 def fold_unmap_high(sym, fidelity: int):
     """High part reconstructed from a folded id (ans_fold.hpp:150-161)."""
     sym = np.asarray(sym, dtype=np.uint32)

@@ -1,6 +1,8 @@
 """Semi-static model building: histogram rescaling + prelude wire format.
-A copy of ans_tpu/reference_model/model.py's pure-Python bodies (without
-its optional C++ fast path), held equal to it by tests/test_torch_host.py.
+A copy of ans_tpu/reference_model/model.py, held equal to it by
+tests/test_torch_host.py: its C++ fast path goes through the port's own
+host library (ans_tpu_torch/native), and each pure-Python body is that
+call's plain version (it runs when `_native` is None).
 
 Bit-exact re-expression of the reference's model pipeline
 (include/ans_util.hpp):
@@ -20,6 +22,7 @@ import math
 
 import numpy as np
 
+from ..native import deferred as _native
 from . import interp, vbyte
 
 
@@ -39,6 +42,9 @@ def entropy_ordered(freqs, freq_sum: int) -> float:
 
     reference: util.hpp:271-282. Summation order matters for bit-exactness.
     """
+    if _native is not None:
+        return _native.entropy_ordered(np.ascontiguousarray(freqs, np.uint64),
+                                       freq_sum)
     h = 0.0
     n = float(freq_sum)
     freqs = np.asarray(freqs)
@@ -52,6 +58,9 @@ def entropy_ordered(freqs, freq_sum: int) -> float:
 
 def cross_entropy_ordered(P, Q) -> float:
     """Cross entropy between two freq vectors (util.hpp:284-298)."""
+    if _native is not None:
+        return _native.cross_entropy_ordered(
+            np.ascontiguousarray(P, np.uint64), np.ascontiguousarray(Q, np.uint32))
     P = np.asarray(P)
     Q = np.asarray(Q)
     n = float(int(P.sum()))
@@ -71,6 +80,8 @@ def scale_freqs(S, F, mapping, M: int, sigma: int, freq_sum: int) -> bool:
     visited in increasing-frequency order (mapping); the running ratio
     M/freq_sum adapts so the final symbol absorbs the remainder exactly.
     """
+    if _native is not None:
+        return _native.scale_freqs(S, F, mapping, M, sigma, freq_sum)
     M = int(M)
     freq_sum = int(freq_sum)
     for cur in range(sigma):

@@ -1,9 +1,12 @@
-"""Reference-wire-format rANS codecs, the compat engine: a copy of the
-pure-Python bodies of ans_tpu/reference_model/rans_compat.py's AnsInt,
-AnsSint, AnsMsb and AnsSmsb with the helpers they call (without the
-optional C++ fast path of ans_tpu.native), held equal to them by
-tests/test_torch_host.py.  The pseudo-adaptive container codes its blocks
-with them on the host when its engine is "compat".
+"""Reference-wire-format rANS codecs, the compat engine: a copy of
+ans_tpu/reference_model/rans_compat.py (the coders AnsInt, AnsSint, AnsMsb,
+AnsSmsb, AnsFold, AnsReorderFold and AnsByte with the helpers they call),
+held equal to it by tests/test_torch_host.py.  Its C++ fast path goes
+through the port's own host library (ans_tpu_torch/native), and each
+pure-Python body is that call's plain version (it runs when `_native` is
+None).  The byte coder's model is reference_model/byte_model.py.  The
+registry's compat engine and the pseudo-adaptive container's compat blocks
+run these coders on the host.
 
 Shared mechanics (reference: ans_int.hpp:38-306 as exemplar):
   * state is u64, lower bound L = K * frame_size, K = 16
@@ -19,8 +22,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import K, MSB_MAX_SIGMA, RADIX
+from .. import native
+from ..constants import (K, MSB_MAX_SIGMA, RADIX, fold_max_sigma,
+                         fold_threshold)
+from ..native import deferred as _native
 from . import mappings
+from .byte_model import byte_prelude_decode, byte_prelude_encode
 from .model import adjust_freqs, load_prelude, serialize_prelude
 
 NUM_STATES = 4
@@ -62,6 +69,17 @@ def interleaved_encode(mapped, nfreqs, frame_size: int,
     before the symbol's renorm word, lowest byte first), as produced by
     mappings.fold_exceptions.
     """
+    if _native is not None:
+        nf = np.ascontiguousarray(nfreqs, np.uint32)
+        base = np.concatenate(([0], np.cumsum(nf.astype(np.uint64))[:-1])
+                              ).astype(np.uint32)
+        ec = (np.ascontiguousarray(exc_counts, np.uint8)
+              if exc_counts is not None else None)
+        eb = (np.ascontiguousarray(exc_bytes, np.uint8)
+              if exc_bytes is not None else None)
+        return _native.compat_encode(
+            np.ascontiguousarray(mapped, np.uint32), ec, eb, nf, base,
+            int(frame_size))
     freq_l, base_l, sub_l = _enc_tables(nfreqs)
     M = int(frame_size)
     L = K * M
@@ -113,6 +131,18 @@ def interleaved_decode(buf: bytes, n: int, nfreqs, high_of_sym=None,
         # would index garbage (native twin rejects identically)
         raise ValueError(f"corrupt prelude: frame size {M_chk} is not a "
                          "positive power of two")
+    if _native is not None:
+        high_slot = nb_slot = None
+        if high_of_sym is not None:
+            high_slot = np.ascontiguousarray(
+                np.asarray(high_of_sym, np.uint32)[sym_slot])
+            nb_slot = np.ascontiguousarray(
+                np.asarray(nb_of_sym, np.uint8)[sym_slot])
+        return _native.compat_decode(
+            buf, n, freq_slot.astype(np.uint32),
+            offset_slot.astype(np.uint32), sym_slot.astype(np.uint32),
+            int(np.asarray(nfreqs, dtype=np.int64).sum()),
+            high_slot, nb_slot)
     undo = (None if high_of_sym is None
             else _make_fold_undo(buf, np.asarray(high_of_sym),
                                  np.asarray(nb_of_sym)))
@@ -246,3 +276,108 @@ class AnsSmsb(AnsMsb):
     def __init__(self, h_approx: int):
         super().__init__(h_approx)
         self.name = f"ANSsmsb-{h_approx}"
+
+
+class AnsFold:
+    """Generalized byte-fold rANS, fidelity 1..8 (reference: ans_fold.hpp)."""
+
+    def __init__(self, fidelity: int, h_approx: int = 1):
+        assert 1 <= fidelity <= 8
+        self.fidelity = fidelity
+        self.h_approx = h_approx
+        self.name = f"ANSfold-{fidelity}"
+
+    def encode(self, values) -> bytes:
+        values = np.asarray(values, dtype=np.uint32)
+        mapped = mappings.fold_map(values, self.fidelity)
+        k, b = mappings.fold_exceptions(values, self.fidelity)
+        max_sym = int(mapped.max())
+        freqs = _hist(mapped, fold_max_sigma(self.fidelity))
+        nfreqs = adjust_freqs(freqs, max_sym, True, self.h_approx)
+        M = int(nfreqs.sum())
+        prelude = serialize_prelude(nfreqs, M)
+        return prelude + interleaved_encode(mapped, nfreqs, M, k, b)
+
+    def decode(self, buf: bytes, n: int):
+        nfreqs, _ = load_prelude(buf)
+        syms = np.arange(len(nfreqs), dtype=np.uint32)
+        high, nb = mappings.fold_unmap_high(syms, self.fidelity)
+        return interleaved_decode(buf, n, nfreqs, high, nb)
+
+
+class AnsReorderFold:
+    """Fold + most-frequent-symbol remap (reference: ans_reorder_fold.hpp).
+
+    Deviation from the reference: in identity mode (sigma < 2**(fidelity+7))
+    the reference decoder subtracts `thres` even from values that were
+    folded, which breaks round-trips for inputs that mix a small alphabet
+    with values >= thres (ans_reorder_fold.hpp:288-302).  We decode those
+    correctly; encoded bytes are unchanged.
+    """
+
+    def __init__(self, fidelity: int, h_approx: int = 1):
+        self.fidelity = fidelity
+        self.h_approx = h_approx
+        self.name = f"ANSrfold-{fidelity}"
+
+    def encode(self, values) -> bytes:
+        values = np.asarray(values, dtype=np.uint32)
+        f = self.fidelity
+        remapped, header = mappings.craft_reorder(values, f)
+        mapped = mappings.fold_map(remapped, f)
+        k, b = mappings.fold_exceptions(remapped, f)
+        max_sym = int(mapped.max())
+        freqs = _hist(mapped, fold_max_sigma(f))
+        nfreqs = adjust_freqs(freqs, max_sym, True, self.h_approx)
+        M = int(nfreqs.sum())
+        prelude = serialize_prelude(nfreqs, M)
+        return bytes(header) + prelude + interleaved_encode(
+            mapped, nfreqs, M, k, b)
+
+    def decode(self, buf: bytes, n: int):
+        f = self.fidelity
+        thres = fold_threshold(f)
+        do_reorder = int.from_bytes(buf[0:4], "little")
+        pos = 4
+        if do_reorder == 1:
+            mf = np.frombuffer(buf[pos : pos + 4 * thres], dtype="<u4")
+            pos += 4 * thres
+        else:
+            mf = np.arange(thres, dtype=np.uint32)
+        nfreqs, _ = load_prelude(buf[pos:])
+        syms = np.arange(len(nfreqs), dtype=np.uint32)
+        high, nb = mappings.fold_unmap_high(syms, f)
+        if do_reorder == 1:
+            # unfolded ids < thres are ranks into the most-frequent table;
+            # folded values carry mapping[x] = x + thres -> subtract it back
+            high = np.where(syms < thres, mf[np.minimum(syms, thres - 1)],
+                            high - np.uint32(thres)).astype(np.uint32)
+        else:
+            high = np.where(syms < thres, syms, high).astype(np.uint32)
+        return interleaved_decode(buf, n, nfreqs, high, nb)
+
+
+# --------------------------------------------------------------------------
+# byte coder (entropy backend of vbyteANS / streamvbyteANS)
+# --------------------------------------------------------------------------
+
+class AnsByte:
+    """rANS over the byte alphabet (reference: ans_byte.hpp:99-300).
+
+    The prelude is a raw interp code of the 256 cumulative freqs over the
+    fixed universe MAX_FRAME_SIZE + 256 (no vbyte/log2 header).
+    """
+
+    name = "ansbyte"
+
+    def encode(self, data: bytes) -> bytes:
+        arr = np.frombuffer(data, dtype=np.uint8)
+        freqs = native.byte_histogram(arr, _native)
+        prelude, nfreqs = byte_prelude_encode(freqs)
+        M = int(nfreqs.sum())
+        return prelude + interleaved_encode(arr.astype(np.uint32), nfreqs, M)
+
+    def decode(self, buf: bytes, n: int) -> bytes:
+        nfreqs, _ = byte_prelude_decode(buf)
+        out = interleaved_decode(buf, n, nfreqs.astype(np.uint32))
+        return out.astype(np.uint8).tobytes()

@@ -16,7 +16,8 @@ ans_tpu_torch/inputs.py's:
 
   0. device: the card's name and power limit;
   1. build: nvcc compiles the ten kernels from ans_tpu_torch/csrc, all at
-     once;
+     once; g++ the host library (ans_tpu_torch/native/ans_native.cpp),
+     which the host model code of every later phase runs on;
   2. kernels: each kernel's wrapper on the card against its plain PyTorch
      version on the same inputs (S = 4096 at n = 2^20 and S = 32 at
      n = 2^17, 4096 steps: K1-K4 on
@@ -87,7 +88,21 @@ ans_tpu_torch/inputs.py's:
      placement launch a scan batch and each decode call one decode launch
      a decode batch; each batched kernel against its batched plain version
      on the call's own staging (tolerance zero), timed, beside its bound;
-     the prepared decode beside the 256 blocks' one-stream decodes.
+     the prepared decode beside the 256 blocks' one-stream decodes;
+ 12. the host layer and the user's entry point: the host library against
+     its plain versions (the host modules' `_native` set to None) on one
+     zipf20 block of 2^17, byte for byte: adjust_freqs, serialize_prelude,
+     interp.decode, and the compat engine's ANS and ANSfold-2 encode and
+     decode, each timed both ways; phase 11's ATFP e2e and staging times,
+     which ran on the library; then `python -m ans_tpu_torch`'s main() at
+     full width on cuda: compress, info and decompress of bench.py's input
+     (n = 2^25, a temporary .u32 file), the ATFC payload equal to
+     fullwidth.json's blob and the output file to the input, K1, K2 and
+     K4 launched by those calls; `--blocked -D 32 -S 4096` on zipf20, the
+     file equal to fullwidth_blocked.json's ANSfold-2 container and
+     decompressed exactly, the same kernels launched; and `-m ANSfold-2
+     --engine compat` on zipf20 at n = 2^20, exact, timed, with no kernel
+     launched (the compat engine codes on the host).
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
 probe's on its own run; its time, its plain version's, and its bound: the
@@ -106,6 +121,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -161,6 +177,12 @@ KERNELS = {
                  "probe.launches"),
 }
 PROBE_COMPARE_ITERS, PROBE_RUN_ITERS = 2, 256
+# phase 12: the CLI's blocked container (the sections and lanes of
+# fullwidth_blocked.json) and the compat engine's input size
+CLI_BLOCK_D, CLI_COMPAT_N = 32, 1 << 20
+# ATFP's e2e encode at n = 2^25 on the pure-Python host code, before the
+# host library (PERF.md section 6)
+PLAIN_ATFP_ENCODE_S = "26.5-72.2"
 
 # integer operations per item, counted from each kernel's source: per
 # (lane, step) for the lane kernels (d: the probes of this frame's search:
@@ -1178,7 +1200,165 @@ def run_pseudo(card: str, name: str, kind: str, x: np.ndarray, scan: str,
     torch.cuda.empty_cache()
     return {"kernels": res, "enc_ms": enc_ms, "dec_ms": dec_ms,
             "one_stream_ms": one_ms, "e2e_enc": e2e_enc,
-            "e2e_dec": e2e_dec, "bytes": len(blob)}
+            "e2e_dec": e2e_dec, "stage_enc": stage_enc,
+            "stage_dec": stage_dec, "blocks": -(-n // PSEUDO_BLOCK),
+            "bytes": len(blob)}
+
+
+def check_native(card: str) -> dict:
+    """The host library against its plain versions (the host modules'
+    `_native` set to None) on one zipf20 block of PSEUDO_BLOCK values:
+    each step's output byte for byte, and its time both ways."""
+    from ans_tpu_torch.inputs import zipf20_input
+    from ans_tpu_torch.reference_model import (interp, model, rans_compat,
+                                               vbyte)
+    mods = (model, interp, rans_compat)
+    x = zipf20_input(PSEUDO_BLOCK)
+    freqs = np.bincount(x).astype(np.uint64)
+    nf = model.adjust_freqs(freqs, int(x.max()), False)
+    M = int(nf.sum())
+    prelude = model.serialize_prelude(nf, M)
+    at = 8 * (len(vbyte.encode_u32(len(nf) - 1)) + 1)
+    ans, fold = rans_compat.AnsInt(), rans_compat.AnsFold(2)
+    blobs = {"ANS": ans.encode(x), "ANSfold-2": fold.encode(x)}
+    steps = {
+        "adjust_freqs": lambda: model.adjust_freqs(
+            freqs, int(x.max()), False).tobytes(),
+        "serialize_prelude": lambda: model.serialize_prelude(nf, M),
+        "interp.decode": lambda: np.asarray(interp.decode(
+            prelude, len(nf), M + len(nf) + 1, bit_offset=at)[0],
+            np.uint64).tobytes(),
+        "compat ANS encode": lambda: ans.encode(x),
+        "compat ANS decode": lambda: ans.decode(blobs["ANS"],
+                                                len(x)).tobytes(),
+        "compat ANSfold-2 encode": lambda: fold.encode(x),
+        "compat ANSfold-2 decode": lambda: fold.decode(
+            blobs["ANSfold-2"], len(x)).tobytes()}
+    require(np.frombuffer(steps["compat ANS decode"](), np.uint32).tolist()
+            == x.tolist() and np.array_equal(np.frombuffer(
+                steps["compat ANSfold-2 decode"](), np.uint32), x),
+            "the compat engine on the host library does not round-trip")
+    res = {}
+    for name, fn in steps.items():
+        out = {}
+        for plain in (False, True):
+            saved = [m._native for m in mods]
+            if plain:
+                for m in mods:
+                    m._native = None
+            try:
+                t0 = time.perf_counter()
+                got = fn()
+                out[plain] = (got, time.perf_counter() - t0)
+            finally:
+                for m, lib in zip(mods, saved):
+                    m._native = lib
+        require(out[False][0] == out[True][0],
+                f"host library: {name} differs from its plain version")
+        res[name] = {"native_s": out[False][1], "plain_s": out[True][1]}
+        print(f"{card} host library == plain, {name} on a zipf20 block of "
+              f"{PSEUDO_BLOCK}: {len(out[False][0])} bytes equal; native "
+              f"{out[False][1]:.4f} s, plain {out[True][1]:.4f} s "
+              f"({out[True][1] / out[False][1]:.1f}x)")
+    return res
+
+
+def run_cli(card: str, full: np.ndarray, rec: dict, z20: np.ndarray,
+            brec: dict) -> dict:
+    """`python -m ans_tpu_torch` through its main() on the card at full
+    width: the ATFC file of the main path, the blocked container and the
+    compat engine; files, launches and times as the module docstring says
+    (phase 12)."""
+    from ans_tpu_torch import container
+    from ans_tpu_torch.__main__ import main as cli
+    from ans_tpu_torch.inputs import zipf20_input
+    res = {}
+
+    def timed(what: str, *argv) -> float:
+        t0 = time.perf_counter()
+        require(cli([*argv]) == 0, f"the CLI's {what} failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, atfc, dst = tmp / "bench.u32", tmp / "bench.atfc", tmp / "out.u32"
+        full.astype("<u4").tofile(src)
+        reset_launches()
+        tc = timed("compress", "compress", str(src), str(atfc), "--device",
+                   DEVICE)
+        timed("info", "info", str(atfc))
+        td = timed("decompress", "decompress", str(atfc), str(dst),
+                   "--device", DEVICE)
+        launches = read_launches()
+        require_launched("the CLI on the main path", launches,
+                         ("encode_scan", "place", "decode_direct"))
+        method, engine, n, blob = container.unpack(atfc.read_bytes())
+        require((method, engine, n) == ("ANSfold-2", "lane", len(full))
+                and len(blob) == rec["blob_len"]
+                and sha256(blob) == rec["blob_sha256"],
+                "the CLI's ATFC payload differs from fullwidth.json's blob")
+        require(np.array_equal(np.fromfile(dst, dtype="<u4"), full),
+                "the CLI's decompressed file differs from its input")
+        res["main"] = {"compress_s": tc, "decompress_s": td,
+                       "launches": launches}
+        print(f"{card} python -m ans_tpu_torch compress / info / decompress, "
+              f"ANSfold-2 on bench.py's input, n=2^25: ATFC payload sha256 "
+              f"{sha256(blob)[:12]} equal to fullwidth.json's, output file "
+              f"equal to the input; compress {tc:.3f} s, decompress "
+              f"{td:.3f} s (host clock, files on disk); launched "
+              + ", ".join(f"{k} x{launches[k]}" for k in (
+                  "encode_scan", "place", "decode_direct")))
+
+        src, atfb = tmp / "zipf20.u32", tmp / "zipf20.atfb"
+        z20.astype("<u4").tofile(src)
+        reset_launches()
+        tc = timed("blocked compress", "compress", str(src), str(atfb),
+                   "--blocked", "-D", str(CLI_BLOCK_D), "-S",
+                   str(FULL_LANES), "--device", DEVICE)
+        timed("blocked info", "info", str(atfb))
+        td = timed("blocked decompress", "decompress", str(atfb), str(dst),
+                   "--device", DEVICE)
+        launches = read_launches()
+        require_launched("the blocked CLI", launches,
+                         ("encode_scan", "place", "decode_direct"))
+        out = atfb.read_bytes()
+        require(len(out) == brec["blob_len"]
+                and sha256(out) == brec["blob_sha256"],
+                "the CLI's ATFB file differs from fullwidth_blocked.json")
+        require(np.array_equal(np.fromfile(dst, dtype="<u4"), z20),
+                "the blocked CLI's decompressed file differs from its input")
+        res["blocked"] = {"compress_s": tc, "decompress_s": td,
+                          "launches": launches}
+        print(f"{card} python -m ans_tpu_torch --blocked -D {CLI_BLOCK_D} "
+              f"-S {FULL_LANES}, zipf20, n=2^25: file equal to "
+              f"fullwidth_blocked.json's, decompressed exactly; compress "
+              f"{tc:.3f} s, decompress {td:.3f} s; launched "
+              + ", ".join(f"{k} x{launches[k]}" for k in (
+                  "encode_scan", "place", "decode_direct")))
+
+        x = zipf20_input(CLI_COMPAT_N)
+        src, out = tmp / "small.u32", tmp / "small.atfc"
+        x.astype("<u4").tofile(src)
+        reset_launches()
+        tc = timed("compat compress", "compress", str(src), str(out), "-m",
+                   "ANSfold-2", "--engine", "compat", "--device", DEVICE)
+        td = timed("compat decompress", "decompress", str(out), str(dst),
+                   "--device", DEVICE)
+        launches = read_launches()
+        require(not any(launches.values()),
+                f"the compat engine launched kernels: {launches}")
+        require(container.unpack(out.read_bytes())[:3]
+                == ("ANSfold-2", "compat", len(x))
+                and np.array_equal(np.fromfile(dst, dtype="<u4"), x),
+                "the compat CLI's decompressed file differs from its input")
+        res["compat"] = {"compress_s": tc, "decompress_s": td}
+        print(f"{card} python -m ans_tpu_torch -m ANSfold-2 --engine compat, "
+              f"zipf20, n=2^20: {out.stat().st_size} bytes, "
+              f"{8 * out.stat().st_size / len(x):.4f} bpi, decompressed "
+              f"exactly; compress {tc:.3f} s, decompress {td:.3f} s on the "
+              f"host, no kernel launched")
+    return res
 
 
 def main() -> int:
@@ -1207,6 +1387,14 @@ def main() -> int:
     build.load_all(tuple(KERNELS))
     print(f"build: {time.perf_counter() - t_start:.1f} s for {len(KERNELS)} "
           f"kernels in parallel ({build.NVCC_FLAGS[0]})")
+    from ans_tpu_torch import native
+    from ans_tpu_torch.native import build as host_build
+    native.lib()
+    gxx = host_build.compiler_version()
+    host_s = (f"built in {host_build.build_seconds:.1f} s"
+              if host_build.build_seconds is not None else "already built")
+    print(f"build: host library {host_s} ({gxx}, "
+          f"{' '.join(host_build.CXX_FLAGS)})")
     for name, log in build.build_log.items():
         for fn, line in ptxas_report(log):
             print(f"  {name}: {fn}: {line}")
@@ -1411,7 +1599,23 @@ def main() -> int:
                   f"{k['launches']} launch(es): {k['ms']:.3f} ms, plain "
                   f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms by "
                   f"{k['bound_by']}{chain}, max_abs_err {k['max_abs_err']}")
-    del z20, cells
+    del cells
+
+    # 12. the host layer and the user's entry point
+    print(f"host library: {gxx}, {host_s} in phase 1")
+    check_native(card)
+    for cell, r in pseudo.items():
+        print(f"{card} ATFP {cell} on the host library, n=2^25, {r['blocks']} "
+              f"blocks: e2e encode {r['e2e_enc']:.3f} s (staging "
+              f"{r['stage_enc']:.3f} s, {r['stage_enc'] / r['blocks']:.4f} s "
+              f"a block), decode {r['e2e_dec']:.3f} s (staging "
+              f"{r['stage_dec']:.3f} s, {r['stage_dec'] / r['blocks']:.4f} s "
+              f"a block); e2e encode on the pure-Python host code, before "
+              f"the library: {PLAIN_ATFP_ENCODE_S} s")
+    full = bench_input(FULL_N, FULL_SEED)
+    cli_res = run_cli(card, full, rec, z20,
+                      find_record(blk, "ANSfold-2", z20))
+    del full, z20
 
     launches = {name: main_run["launches"][name]
                 for name in ("encode_scan", "place", "decode_search")}
@@ -1465,6 +1669,9 @@ def main() -> int:
             if "chain_bound_ms" in timed[name] else {}),
          **({"batched": batched[name]} if name in batched else {}),
          **({"pseudo": per_model[name]} if name in per_model else {}),
+         **({"cli_launches": sum(cli_res[run]["launches"][name]
+                                 for run in ("main", "blocked"))}
+            if name in ("encode_scan", "place", "decode_direct") else {}),
          **({"note": "a probe: its work is the latency it measures, so it "
                      "has no work bound; no PyTorch call computes a "
                      "dependency chain of one primitive"}

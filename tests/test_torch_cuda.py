@@ -1632,3 +1632,41 @@ def test_pseudo_golden_containers_on_card(cuda):
                                rec["engine"], device=cuda)
         assert codec.encode(x) == blob
         np.testing.assert_array_equal(codec.decode(blob), x)
+
+
+@pytest.mark.parametrize("method,engine", [
+    ("ANSfold-2", "lane"), ("ANS", "lane"), ("ANSmsb", "lane"),
+    ("vbyteANS", "lane"), ("streamvbyteANS", "lane"),
+    ("pseudo_adaptive", "lane"), ("ANSfold-2", "compat")])
+def test_container_on_card_equals_cpu(cuda, method, engine):
+    """The ATFC file written on the card equals the CPU's, and each
+    device decodes it exactly."""
+    from ans_tpu_torch import container
+    x = _values(30000, 11) % (1 << 20)
+    want = container.compress(x, method, engine, device="cpu")
+    got = container.compress(x, method, engine, device=cuda)
+    assert got == want
+    np.testing.assert_array_equal(container.decompress(got, device=cuda), x)
+
+
+def test_cli_roundtrip_on_card(cuda, tmp_path, capsys):
+    """python -m ans_tpu_torch on the card (its default device): the ATFC
+    and the blocked file equal the CPU's, the kernels run, and decompress
+    gives the input back."""
+    from ans_tpu_torch.__main__ import main as cli
+    x = _values(50000, 12)
+    src = tmp_path / "in.u32"
+    x.astype("<u4").tofile(src)
+    for extra in ([], ["--blocked", "-D", "3"], ["-m", "ANSmsb", "-S", "32"]):
+        out, ref, dst = (tmp_path / "card.bin", tmp_path / "cpu.bin",
+                         tmp_path / "out.u32")
+        k1, k2 = encode.launches, place.launches
+        assert cli(["compress", str(src), str(out), *extra]) == 0
+        assert (encode.launches, place.launches) == (k1 + 1, k2 + 1)
+        assert cli(["compress", str(src), str(ref), *extra, "--device",
+                    "cpu"]) == 0
+        assert out.read_bytes() == ref.read_bytes()
+        assert cli(["info", str(out)]) == 0
+        assert cli(["decompress", str(out), str(dst)]) == 0
+        np.testing.assert_array_equal(np.fromfile(dst, dtype="<u4"), x)
+    capsys.readouterr()

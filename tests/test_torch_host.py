@@ -26,7 +26,9 @@ import ans_tpu.constants as jconstants
 from ans_tpu.reference_model import interp as jinterp
 from ans_tpu.reference_model import mappings as jmappings
 from ans_tpu.reference_model import model as jmodel
+from ans_tpu.reference_model import parity as jparity
 from ans_tpu.reference_model import rans_compat as jcompat
+from ans_tpu.reference_model import shuff_compat as jshuff
 from ans_tpu.reference_model import vbyte as jvbyte
 from ans_tpu.reference_model.model import adjust_freqs
 from ans_tpu.utils.zipf import zipf
@@ -36,7 +38,8 @@ from ans_tpu_torch.models import config, framing
 from ans_tpu_torch.ops import escape, grouped, tables
 from ans_tpu_torch.parallel import block_runtime
 from ans_tpu_torch.reference_model import (byte_model, interp, mappings,
-                                           model, rans_compat, vbyte)
+                                           model, parity, rans_compat,
+                                           shuff_compat, vbyte)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -300,8 +303,12 @@ def test_imports_without_jax():
                 "ans_tpu_torch.parallel.block_runtime",
                 "ans_tpu_torch.models.pseudo_adaptive",
                 "ans_tpu_torch.ops.model_batch",
-                "ans_tpu_torch.reference_model.rans_compat"} <= set(names), \
-            names
+                "ans_tpu_torch.reference_model.rans_compat",
+                "ans_tpu_torch.reference_model.shuff_compat",
+                "ans_tpu_torch.reference_model.parity",
+                "ans_tpu_torch.native", "ans_tpu_torch.native.build",
+                "ans_tpu_torch.native.binding", "ans_tpu_torch.container",
+                "ans_tpu_torch.__main__"} <= set(names), names
         import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
@@ -324,6 +331,10 @@ def test_imports_without_jax():
             pa = models.get("pseudo_adaptive", device="cpu")
             pa.block_size, pa.engine = 1000, engine
             assert (pa.decode(pa.encode(x)) == x).all()
+        from ans_tpu_torch import container
+        for name in ("ANS", "ANSfold-2", "ANSrfold-2", "ANSmsb", "shuff"):
+            buf = container.compress(x, name, "compat", device="cpu")
+            assert (container.decompress(buf, device="cpu") == x).all()
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in ("jax", "jaxlib", "ans_tpu"))
         assert not loaded, loaded
@@ -344,7 +355,11 @@ def test_port_sources_import_neither_jax_nor_ans_tpu():
     files = sorted(Path(REPO, "ans_tpu_torch").rglob("*.py"))
     files.append(Path(REPO, "chip_smoke.py"))
     assert len(files) > 25
-    assert Path(REPO, "ans_tpu_torch", "probe.py") in files
+    for name in ("probe.py", "container.py", "__main__.py",
+                 "native/__init__.py", "native/build.py",
+                 "native/binding.py", "reference_model/shuff_compat.py",
+                 "reference_model/parity.py"):
+        assert Path(REPO, "ans_tpu_torch", name) in files, name
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -429,20 +444,84 @@ COMPAT_DATASETS = ["zipf12", "geometric", "uniform_small", "tiny",
 
 @pytest.mark.parametrize("dataset", COMPAT_DATASETS)
 @pytest.mark.parametrize("coder", ["AnsInt", "AnsSint-5", "AnsMsb",
-                                   "AnsSmsb-80"])
+                                   "AnsSmsb-80", "AnsFold-2", "AnsFold-8",
+                                   "AnsReorderFold-1", "AnsReorderFold-2",
+                                   "AnsByte", "ShuffCompat"])
 def test_rans_compat_copies(datasets, dataset, coder):
-    """The compat coders (the copy without ans_tpu's C++ fast path) write
-    ans_tpu's bytes and each decodes the other's."""
+    """The compat coders (the copy, on the port's host library) write
+    ans_tpu's bytes and each decodes the other's; AnsByte codes the low
+    bytes of the input."""
     name, _, h = coder.partition("-")
     args = (int(h),) if h else ()
-    port, ref = getattr(rans_compat, name)(*args), getattr(jcompat, name)(
-        *args)
+    port_mod, ref_mod = ((shuff_compat, jshuff) if name == "ShuffCompat"
+                         else (rans_compat, jcompat))
+    port, ref = getattr(port_mod, name)(*args), getattr(ref_mod, name)(*args)
     x = datasets[dataset]
-    blob = port.encode(x)
-    assert blob == ref.encode(x)
-    np.testing.assert_array_equal(port.decode(blob, len(x)), x)
-    np.testing.assert_array_equal(ref.decode(blob, len(x)), x)
+    if name == "AnsByte":
+        x = (x & 0xFF).astype(np.uint8).tobytes()
+    blob = bytes(port.encode(x))
+    assert blob == bytes(ref.encode(x))
+    for codec in (port, ref):
+        out = codec.decode(blob, len(x))
+        if name == "AnsByte":
+            assert out == x
+        else:
+            np.testing.assert_array_equal(out, x)
     assert port.name == ref.name
+
+
+def test_shuff_compat_copy_helpers():
+    """The shuff codec's order-defining helpers equal ans_tpu's: the
+    reference's qsort order (ties included) and the code lengths."""
+    rng = np.random.default_rng(5)
+    for n in (1, 2, 7, 40, 300):
+        freq = {int(s): int(f) for s, f in zip(
+            rng.permutation(5 * n)[:n], rng.integers(1, 6, n))}
+        got, want, fa, fb = list(freq), list(freq), dict(freq), dict(freq)
+        shuff_compat._indirect_sort(fa, got, 0, n)
+        jshuff._indirect_sort(fb, want, 0, n)
+        assert got == want
+        shuff_compat._min_redundancy(fa, got, n)
+        jshuff._min_redundancy(fb, want, n)
+        assert fa == fb
+    for name in ("LOG2_L", "L", "LOG2_MAX_SYMBOL", "MAX_SYMBOL", "MASK64"):
+        assert getattr(shuff_compat, name) == getattr(jshuff, name)
+
+
+def test_parity_copy():
+    """The parity helpers accept a blob that differs from the reference
+    only in the final prelude word and refuse any other difference."""
+    assert parity.METHODS == jparity.METHODS
+    x = np.arange(5000, dtype=np.uint32) % 333
+    for method, codec in (("fold2", rans_compat.AnsFold(2)),
+                          ("rfold2", rans_compat.AnsReorderFold(2))):
+        blob = codec.encode(x)
+        assert parity.prelude_padding_span(method, blob) == \
+            jparity.prelude_padding_span(method, blob)
+        a, b = parity.prelude_padding_span(method, blob)
+        pad = bytearray(blob)
+        pad[b - 1] ^= 0x80
+        for mod in (parity, jparity):
+            mod.assert_blob_parity(method, blob, bytes(pad))
+            bad = bytearray(blob)
+            bad[-1] ^= 1
+            with pytest.raises(AssertionError, match="non-padding"):
+                mod.assert_blob_parity(method, blob, bytes(bad))
+    data = (x & 0xFF).astype(np.uint8).tobytes()
+    blob = rans_compat.AnsByte().encode(data)
+    for mod in (parity, jparity):
+        mod.assert_byte_blob_parity(blob, blob)
+        bad = bytearray(blob)
+        bad[-3] ^= 4
+        with pytest.raises(AssertionError, match="non-padding"):
+            mod.assert_byte_blob_parity(blob, bytes(bad))
+
+
+def test_native_source_is_ans_tpus():
+    """The host library's source is ans_tpu's ans_native.cpp, unchanged."""
+    ours = Path(REPO, "ans_tpu_torch", "native", "ans_native.cpp")
+    assert ours.read_text() == Path(REPO, "ans_tpu", "native",
+                                    "ans_native.cpp").read_text()
 
 
 def test_rans_compat_helpers():
@@ -545,6 +624,10 @@ def test_fold_map_copies(fidelity):
     for name in ("fold_exception_count", "fold_map"):
         got = getattr(mappings, name)(x, fidelity)
         want = getattr(jmappings, name)(x, fidelity)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    for got, want in zip(mappings.fold_exceptions(x, fidelity),
+                         jmappings.fold_exceptions(x, fidelity)):
         np.testing.assert_array_equal(got, want)
         assert got.dtype == want.dtype
 
