@@ -13,45 +13,19 @@ profile_idle.py), made with NumPy from fixed seeds.
              `zipf_sample`: bench's distribution, the same under both
              numpys (the pseudo-adaptive path's input beside zipf20).
 
-`zipf_sample` is a copy of ans_tpu/utils/zipf.py (rejection-inversion on
-`rng.random`, held equal to it by tests/test_torch_slice.py): it draws
-the same values under numpy 2.0.2 and 2.3.5, where `rng.zipf` (bench)
-does not.  tests/fixtures/lane/make_fixtures.py writes the reference
-blobs of these inputs with ans_tpu.
+`zipf_sample` is utils/zipf.py's `zipf`, the port's copy of
+ans_tpu/utils/zipf.py (rejection-inversion on `rng.random`, held equal to
+it by tests/test_torch_slice.py): it draws the same values under numpy
+2.0.2 and 2.3.5, where `rng.zipf` (bench) does not.
+tests/fixtures/lane/make_fixtures.py writes the reference blobs of these
+inputs with ans_tpu.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def zipf_sample(rng: np.random.Generator, size: int, N: int,
-                q: float = 1.0) -> np.ndarray:
-    """`size` samples of Zipf(q) over {1..N}."""
-    def H(x):
-        if abs(q - 1.0) < 1e-8:
-            return np.log(x)
-        return (np.power(x, 1.0 - q) - 1.0) / (1.0 - q)
-
-    def H_inv(u):
-        if abs(q - 1.0) < 1e-8:
-            return np.exp(u)
-        return np.power(np.maximum(1.0 + u * (1.0 - q), 1e-300),
-                        1.0 / (1.0 - q))
-
-    H_x1 = float(H(1.5)) - 1.0
-    H_n = float(H(N + 0.5))
-    out = np.empty(size, dtype=np.uint32)
-    filled = 0
-    while filled < size:
-        m = max(1024, int((size - filled) * 1.25))
-        u = H_x1 + rng.random(m) * (H_n - H_x1)
-        k = np.clip(np.round(H_inv(u)), 1.0, float(N))
-        accept = u >= H(k + 0.5) - np.power(k, -q)
-        got = k[accept].astype(np.uint32)[: size - filled]
-        out[filled:filled + len(got)] = got
-        filled += len(got)
-    return out
+from .utils.zipf import zipf as zipf_sample
 
 
 def bench_input(n: int, seed: int = 42) -> np.ndarray:

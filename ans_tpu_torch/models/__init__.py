@@ -1,4 +1,5 @@
-"""Codec registry of the port (counterpart of ans_tpu/models/__init__.py).
+"""Codec registry of the port (counterpart of ans_tpu/models/__init__.py):
+the same names under the same engines as ans_tpu's.
 
 Every codec exposes `encode(values) -> bytes` and
 `decode(buf, n) -> np.uint32 array`.  Two engines per ANS method:
@@ -9,23 +10,29 @@ Every codec exposes `encode(values) -> bytes` and
   * "compat" - the C++ reference's own wire format, coded on the host
                (reference_model/rans_compat.py, in the host library)
 
-Ported so far: ANS, ANSsint-h, ANSfold-f, ANSmsb, ANSsmsb-h and
-ANSrfold-f under both engines, shuff under the compat engine
-(reference_model/shuff_compat.py), and under either engine the byte path
-(vbyte, streamvbyte, vbyteANS, streamvbyteANS) and pseudo_adaptive (the
-ATFP block container, models/pseudo_adaptive.py); any other name of
-ans_tpu's registry raises KeyError naming the ROADMAP item that will port
-it.  The blocked container is ans_tpu_torch.parallel.BlockCodec.
+The other names are the same under both engines: the byte path (vbyte,
+streamvbyte and their ANS composites, run on the device; their fse and
+huffzero composites split on the device and entropy-code on the host),
+pseudo_adaptive (the ATFP block container, models/pseudo_adaptive.py),
+and the host codecs (optpfor, arith, fse, huffzero, entropy_only),
+which take the device argument and ignore it; `shuff` is the LUT codec
+of models/shuff.py under the lane engine and the reference's canonical
+Huffman wire (reference_model/shuff_compat.py) under compat.  The blocked
+container is ans_tpu_torch.parallel.BlockCodec.
 """
 
 from __future__ import annotations
 
 from ..reference_model import rans_compat as _rc
-from ..reference_model import shuff_compat as _shuff
+from ..reference_model import shuff_compat as _shuff_compat
 from . import ans as _lane
+from . import arith as _arith
 from . import bytes as _bytes
 from . import config
+from . import pfor as _pfor
 from . import pseudo_adaptive as _pseudo
+from . import shuff as _shuff
+from . import tans as _tans
 from .engine import PreparedDecoder, PreparedEncoder  # noqa: F401
 
 # the H_approx values of ans_tpu's ANSsint-h and ANSsmsb-h names
@@ -76,33 +83,50 @@ _BLOCKS = {
         lanes=lanes, device=device),
 }
 
-# name prefix -> where it is queued (ROADMAP.md, queue 1)
-_UNPORTED = (
-    ("", "queue 1 item 8, the host codecs: shuff under the lane engine, "
-         "fse, huffzero and their composites, arith, optpfor, entropy"),
-)
+# the host codecs and the host-entropy composites, whose split runs on
+# `device`: name -> codec factory (lanes unused)
+_HOST = {
+    "optpfor": lambda lanes, device: _pfor.OptPFor(),
+    "OptPFor": lambda lanes, device: _pfor.OptPFor(),
+    "arith": lambda lanes, device: _arith.Arith(),
+    "fse": lambda lanes, device: _tans.Fse(),
+    "huffzero": lambda lanes, device: _bytes.HuffZero(),
+    "huff0": lambda lanes, device: _bytes.HuffZero(),
+    "vbytefse": lambda lanes, device: _bytes.VbyteFse(device=device),
+    "streamvbytefse": lambda lanes, device: _bytes.StreamVbyteFse(
+        device=device),
+    "vbytehuffzero": lambda lanes, device: _bytes.VbyteHuffzero(
+        device=device),
+    "streamvbytehuffzero": lambda lanes, device: _bytes.StreamVbyteHuffzero(
+        device=device),
+    "entropy_only": lambda lanes, device: _bytes.EntropyOnly(),
+    "entropy": lambda lanes, device: _bytes.EntropyOnly(),
+}
+
+# shuff: the lane engine's LUT codec, the reference's wire under compat
+_SHUFF = {"lane": lambda lanes, device: _shuff.Shuff(),
+          "compat": lambda lanes, device: _shuff_compat.ShuffCompat()}
 
 
 def _registry(engine: str) -> dict:
-    # shuff under the compat engine is the reference's canonical Huffman
-    # wire; ans_tpu's lane engine has another shuff codec, not ported yet
-    ans = {"lane": _LANE, "compat": {
-        **_COMPAT, "shuff": lambda lanes, device: _shuff.ShuffCompat()}}
+    ans = {"lane": _LANE, "compat": _COMPAT}
     if engine not in ans:
         raise KeyError(f"unknown engine {engine!r}; known: {sorted(ans)}")
-    return {**ans[engine], **_BYTE, **_BLOCKS}
+    return {**ans[engine], "shuff": _SHUFF[engine], **_BYTE, **_BLOCKS,
+            **_HOST}
 
 
 def _lookup(name: str, registry=None, engine: str = "lane"):
-    registry = _registry(engine) if registry is None else registry
+    """The factory of `name` in `registry` (default: the engine's whole
+    registry); a known name outside a given registry is not a lane-format
+    ANS method."""
+    known = _registry(engine)
+    registry = known if registry is None else registry
     if name in registry:
         return registry[name]
-    if name in _BYTE or name in _BLOCKS:
+    if name in known:
         raise KeyError(f"{name!r} is not a lane-format ANS method")
-    todo = next(item for prefix, item in _UNPORTED if name.startswith(prefix))
-    raise KeyError(f"method {name!r} is not ported to ans_tpu_torch yet "
-                   f"(ROADMAP {todo}); ported under the {engine} engine: "
-                   f"{available(engine)}")
+    raise KeyError(f"unknown method {name!r}; known: {sorted(known)}")
 
 
 def available(engine: str = "lane"):

@@ -23,6 +23,8 @@ functions of the prelude, so decoders re-derive them.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -33,6 +35,7 @@ from ..ops.mappings import fold_map_hist, msb_map_hist
 from ..reference_model import mappings as map_np
 from ..reference_model.model import (adjust_freqs, load_prelude,
                                      serialize_prelude)
+from ..utils.stats import record_stats
 from . import config, engine, framing
 
 # default frame cap: None = the reference's exact adjust_freqs search,
@@ -114,14 +117,22 @@ class _LaneCodec:
     def encode(self, values) -> bytes:
         """Model half -> prelude -> lane stream.  The prelude serialises
         the true per-symbol frequencies (pfreqs); the frame runs over
-        ffreqs, which differ only under the tail escape."""
+        ffreqs, which differ only under the tail escape.  Reports the
+        prelude / stream split of bytes and time to utils.stats, as
+        ans_tpu's lane codecs do (the header counts as prelude)."""
+        t0 = time.perf_counter_ns()
         mapped, k, low, pfreqs, ffreqs, raw, header = self._enc_inputs(
             values)
+        prelude = header + self._prelude(pfreqs)
+        t1 = time.perf_counter_ns()
         n = int(mapped.shape[0])
         table, staged = _stage(mapped, k, low, n, ffreqs, raw,
                                self.lanes or config.default_lane_count(n))
-        return (header + self._prelude(pfreqs)
-                + engine.encode(*staged, n, table))
+        stream = engine.encode(*staged, n, table)
+        record_stats(prelude_bytes=len(prelude), encode_bytes=len(stream),
+                     prelude_time_ns=t1 - t0,
+                     encode_time_ns=time.perf_counter_ns() - t1)
+        return prelude + stream
 
     def _dec_table(self, buf: bytes):
         """(decode table, stream offset) parsed from the wire prelude."""

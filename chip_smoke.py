@@ -102,7 +102,23 @@ ans_tpu_torch/inputs.py's:
      file equal to fullwidth_blocked.json's ANSfold-2 container and
      decompressed exactly, the same kernels launched; and `-m ANSfold-2
      --engine compat` on zipf20 at n = 2^20, exact, timed, with no kernel
-     launched (the compat engine codes on the host).
+     launched (the compat engine codes on the host);
+ 13. the host codecs and the experiment drivers (records in
+     tests/fixtures/lane/fullwidth_host.json): vbytefse, streamvbytefse,
+     vbytehuffzero and streamvbytehuffzero on zipf20 at n = 2^25 through
+     models.get(name, device="cuda"): the blob equal to the record, decode
+     exact, K7 launched on each encode and K9 / K8 on each decode and no
+     other kernel, e2e seconds and the host entropy stage's share of them;
+     shuff (lane engine), arith, optpfor, fse and huffzero on zipf20 drawn
+     at n = 2^22 (host-bound: the cut keeps the phase short): blob equal to
+     the record, decode exact, no kernel launched, seconds; tANS, shuff,
+     arith and mtf on the host library against their plain bodies
+     (`_native` None) on one zipf20 block of 2^17 (tANS and mtf on its low
+     bytes), byte for byte, both times; then the benchmark driver's main()
+     on a temporary .u32 of zipf20 at n = 2^20 (--runs 1, ANSfold-2,
+     vbyteANS, vbytefse, shuff, arith on cuda: every round trip it asserts,
+     K1, K2, K4, K7 and K9 launched) and table_effectiveness on the same
+     file.
 
 Prints the kernels' JSON line (each kernel's launches on its path, the
 probe's on its own run; its time, its plain version's, and its bound: the
@@ -183,6 +199,15 @@ CLI_BLOCK_D, CLI_COMPAT_N = 32, 1 << 20
 # ATFP's e2e encode at n = 2^25 on the pure-Python host code, before the
 # host library (PERF.md section 6)
 PLAIN_ATFP_ENCODE_S = "26.5-72.2"
+# phase 13: the host-entropy composites at full width and the host coders
+# at HOST_N (their kernels: the splitter's encode and decode), the
+# drivers' input size
+HOST_COMPOSITES = {"vbytefse": "vbyte_decode", "streamvbytefse": "svb_decode",
+                   "vbytehuffzero": "vbyte_decode",
+                   "streamvbytehuffzero": "svb_decode"}
+HOST_CODERS = ("shuff", "arith", "optpfor", "fse", "huffzero")
+HOST_N, DRIVER_N = 1 << 22, 1 << 20
+DRIVER_METHODS = "ANSfold-2,vbyteANS,vbytefse,shuff,arith"
 
 # integer operations per item, counted from each kernel's source: per
 # (lane, step) for the lane kernels (d: the probes of this frame's search:
@@ -1205,6 +1230,34 @@ def run_pseudo(card: str, name: str, kind: str, x: np.ndarray, scan: str,
             "bytes": len(blob)}
 
 
+def compare_with_plain(card: str, mods, steps: dict) -> dict:
+    """Each step (a function giving bytes) on the host library and with
+    the modules' `_native` set to None: the same bytes, and both times."""
+    res = {}
+    for name, fn in steps.items():
+        out = {}
+        for plain in (False, True):
+            saved = [m._native for m in mods]
+            if plain:
+                for m in mods:
+                    m._native = None
+            try:
+                t0 = time.perf_counter()
+                got = fn()
+                out[plain] = (got, time.perf_counter() - t0)
+            finally:
+                for m, lib in zip(mods, saved):
+                    m._native = lib
+        require(out[False][0] == out[True][0],
+                f"host library: {name} differs from its plain version")
+        res[name] = {"native_s": out[False][1], "plain_s": out[True][1]}
+        print(f"{card} host library == plain, {name} on a zipf20 block of "
+              f"{PSEUDO_BLOCK}: {len(out[False][0])} bytes equal; native "
+              f"{out[False][1]:.4f} s, plain {out[True][1]:.4f} s "
+              f"({out[True][1] / out[False][1]:.1f}x)")
+    return res
+
+
 def check_native(card: str) -> dict:
     """The host library against its plain versions (the host modules'
     `_native` set to None) on one zipf20 block of PSEUDO_BLOCK values:
@@ -1238,29 +1291,7 @@ def check_native(card: str) -> dict:
             == x.tolist() and np.array_equal(np.frombuffer(
                 steps["compat ANSfold-2 decode"](), np.uint32), x),
             "the compat engine on the host library does not round-trip")
-    res = {}
-    for name, fn in steps.items():
-        out = {}
-        for plain in (False, True):
-            saved = [m._native for m in mods]
-            if plain:
-                for m in mods:
-                    m._native = None
-            try:
-                t0 = time.perf_counter()
-                got = fn()
-                out[plain] = (got, time.perf_counter() - t0)
-            finally:
-                for m, lib in zip(mods, saved):
-                    m._native = lib
-        require(out[False][0] == out[True][0],
-                f"host library: {name} differs from its plain version")
-        res[name] = {"native_s": out[False][1], "plain_s": out[True][1]}
-        print(f"{card} host library == plain, {name} on a zipf20 block of "
-              f"{PSEUDO_BLOCK}: {len(out[False][0])} bytes equal; native "
-              f"{out[False][1]:.4f} s, plain {out[True][1]:.4f} s "
-              f"({out[True][1] / out[False][1]:.1f}x)")
-    return res
+    return compare_with_plain(card, mods, steps)
 
 
 def run_cli(card: str, full: np.ndarray, rec: dict, z20: np.ndarray,
@@ -1358,6 +1389,151 @@ def run_cli(card: str, full: np.ndarray, rec: dict, z20: np.ndarray,
               f"{8 * out.stat().st_size / len(x):.4f} bpi, decompressed "
               f"exactly; compress {tc:.3f} s, decompress {td:.3f} s on the "
               f"host, no kernel launched")
+    return res
+
+
+def run_host_composite(card: str, name: str, x: np.ndarray) -> dict:
+    """A host-entropy composite on x through models.get on the card: blob
+    equal to its fullwidth_host.json record, decode exact, K7 on encode and
+    the splitter's decode kernel on decode and nothing else; e2e seconds
+    and the host coder's share of them."""
+    from ans_tpu_torch import models
+    rec = find_record(LANE_FIXTURES / "fullwidth_host.json", name, x)
+    reset_launches()
+    codec = models.get(name, device=DEVICE)
+    coder = codec.entropy.coder
+    stage = {"encode": 0.0, "decode": 0.0}
+
+    def timed_stage(what, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                stage[what] += time.perf_counter() - t0
+        return call
+
+    coder.encode = timed_stage("encode", coder.encode)
+    coder.decode = timed_stage("decode", coder.decode)
+    t0 = time.perf_counter()
+    blob = codec.encode(x)
+    e2e_enc = time.perf_counter() - t0
+    require(len(blob) == rec["blob_len"] and sha256(blob)
+            == rec["blob_sha256"],
+            f"{name}: blob differs from fullwidth_host.json: {len(blob)} "
+            f"bytes")
+    t0 = time.perf_counter()
+    out = codec.decode(blob, len(x))
+    e2e_dec = time.perf_counter() - t0
+    require(np.array_equal(out, x), f"{name}: decode is not exact")
+    launches = read_launches()
+    dec_kernel = HOST_COMPOSITES[name]
+    require(launches["bytesplit_encode"] == 1 and launches[dec_kernel] == 1
+            and sum(launches.values()) == 2,
+            f"{name}: launched {launches}, not one bytesplit_encode and one "
+            f"{dec_kernel}")
+    nb = int.from_bytes(blob[:4], "little")
+    print(f"{card} {name}, zipf20, n=2^25: {len(blob)} bytes, "
+          f"{8 * len(blob) / len(x):.4f} bpi ({nb} split bytes), sha256 "
+          f"{sha256(blob)[:12]} equal to fullwidth_host.json; e2e encode "
+          f"{e2e_enc:.3f} s (host coder {stage['encode']:.3f} s, "
+          f"{stage['encode'] / e2e_enc:.1%}), decode {e2e_dec:.3f} s (host "
+          f"coder {stage['decode']:.3f} s, {stage['decode'] / e2e_dec:.1%});"
+          f" launched bytesplit_encode x1, {dec_kernel} x1")
+    return {"e2e_enc_s": e2e_enc, "e2e_dec_s": e2e_dec,
+            "host_enc_s": stage["encode"], "host_dec_s": stage["decode"],
+            "bytes": len(blob), "launches": {k: v for k, v in launches.items()
+                                             if v}}
+
+
+def run_host_coder(card: str, name: str, x: np.ndarray) -> dict:
+    """A host coder on x: blob equal to its record, decode exact, no kernel
+    launched; seconds both ways."""
+    from ans_tpu_torch import models
+    rec = find_record(LANE_FIXTURES / "fullwidth_host.json", name, x)
+    reset_launches()
+    codec = models.get(name, device=DEVICE)
+    t0 = time.perf_counter()
+    blob = codec.encode(x)
+    enc = time.perf_counter() - t0
+    require(len(blob) == rec["blob_len"] and sha256(blob)
+            == rec["blob_sha256"],
+            f"{name}: blob differs from fullwidth_host.json: {len(blob)} "
+            f"bytes")
+    t0 = time.perf_counter()
+    out = codec.decode(blob, len(x))
+    dec = time.perf_counter() - t0
+    require(np.array_equal(out, x), f"{name}: decode is not exact")
+    launches = read_launches()
+    require(not any(launches.values()),
+            f"{name}, a host coder, launched kernels: {launches}")
+    print(f"{card} {name}, zipf20, n=2^22: {len(blob)} bytes, "
+          f"{8 * len(blob) / len(x):.4f} bpi, sha256 {sha256(blob)[:12]} "
+          f"equal to fullwidth_host.json; encode {enc:.3f} s, decode "
+          f"{dec:.3f} s on the host, no kernel launched")
+    return {"enc_s": enc, "dec_s": dec, "bytes": len(blob)}
+
+
+def check_host_codec_library(card: str) -> dict:
+    """tANS, shuff, arith and mtf on the host library against their plain
+    bodies (the modules' `_native` set to None) on one zipf20 block of
+    PSEUDO_BLOCK values (tANS and mtf on its low bytes), byte for byte, and
+    their times both ways."""
+    from ans_tpu_torch.inputs import zipf20_input
+    from ans_tpu_torch.models import arith, shuff, tans
+    from ans_tpu_torch.utils import bwt
+    mods = (tans, shuff, arith, bwt)
+    x = zipf20_input(PSEUDO_BLOCK)
+    low = (x & 0xFF).astype(np.uint8).tobytes()
+    blobs = {"tans": tans.ByteTans().encode(low), "shuff":
+             shuff.Shuff().encode(x), "arith": arith.Arith().encode(x)}
+    steps = {
+        "tANS encode": lambda: tans.ByteTans().encode(low),
+        "tANS decode": lambda: tans.ByteTans().decode(blobs["tans"],
+                                                      len(low)),
+        "shuff encode": lambda: shuff.Shuff().encode(x),
+        "shuff decode": lambda: shuff.Shuff().decode(
+            blobs["shuff"], len(x)).tobytes(),
+        "arith encode": lambda: arith.Arith().encode(x),
+        "arith decode": lambda: arith.Arith().decode(
+            blobs["arith"], len(x)).tobytes(),
+        "mtf": lambda: bwt.mtf(np.frombuffer(low, np.uint8)).tobytes()}
+    require(steps["tANS decode"]() == low
+            and steps["shuff decode"]() == x.tobytes()
+            and steps["arith decode"]() == x.tobytes(),
+            "the host codecs on the host library do not round-trip")
+    return compare_with_plain(card, mods, steps)
+
+
+def run_drivers(card: str) -> dict:
+    """The benchmark driver's main() (--runs 1, DRIVER_METHODS, on the
+    card by default) and table_effectiveness's on a temporary .u32 of
+    zipf20 at DRIVER_N: every round trip the benchmark asserts, and K1,
+    K2, K4, K7 and K9 launched by it."""
+    from ans_tpu_torch.drivers import benchmark, table_effectiveness
+    from ans_tpu_torch.inputs import zipf20_input
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "zipf20.u32"
+        zipf20_input(DRIVER_N).astype("<u4").tofile(src)
+        reset_launches()
+        t0 = time.perf_counter()
+        benchmark.main(["-i", str(src), "--runs", "1", "--methods",
+                        DRIVER_METHODS])
+        res["benchmark_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        require_launched("the benchmark driver", launches, (
+            "encode_scan", "place", "decode_direct", "bytesplit_encode",
+            "vbyte_decode"))
+        res["benchmark_launches"] = {k: v for k, v in launches.items() if v}
+        t0 = time.perf_counter()
+        table_effectiveness.main(["-i", str(src)])
+        res["table_effectiveness_s"] = time.perf_counter() - t0
+    print(f"{card} drivers on zipf20, n=2^20: benchmark --runs 1 "
+          f"({DRIVER_METHODS}) {res['benchmark_s']:.3f} s, launched "
+          + ", ".join(f"{k} x{v}" for k, v in
+                      res["benchmark_launches"].items())
+          + f"; table_effectiveness {res['table_effectiveness_s']:.3f} s")
     return res
 
 
@@ -1615,7 +1791,19 @@ def main() -> int:
     full = bench_input(FULL_N, FULL_SEED)
     cli_res = run_cli(card, full, rec, z20,
                       find_record(blk, "ANSfold-2", z20))
-    del full, z20
+    del full
+
+    # 13. the host codecs and the experiment drivers
+    host = {"composites": {}, "coders": {}}
+    for name in HOST_COMPOSITES:
+        host["composites"][name] = run_host_composite(card, name, z20)
+    del z20
+    z22 = zipf20_input(HOST_N)
+    for name in HOST_CODERS:
+        host["coders"][name] = run_host_coder(card, name, z22)
+    del z22
+    host["library"] = check_host_codec_library(card)
+    host["drivers"] = run_drivers(card)
 
     launches = {name: main_run["launches"][name]
                 for name in ("encode_scan", "place", "decode_search")}
@@ -1676,7 +1864,7 @@ def main() -> int:
                      "has no work bound; no PyTorch call computes a "
                      "dependency chain of one primitive"}
             if name == "op_probe" else {})}
-        for name, (src, tpu, _) in KERNELS.items()]}))
+        for name, (src, tpu, _) in KERNELS.items()], "host": host}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,7 @@
     JAX_PLATFORMS=cpu python tests/fixtures/lane/make_fixtures.py \
         [--full-width] [--grouped-full-width] [--bytes-full-width]
         [--msb-full-width] [--blocked-full-width] [--pseudo-full-width]
+        [--host-full-width]
         [--full-width-input FILE --numpy VERSION [--kind KIND]]
 
 Writes, next to this file:
@@ -46,6 +47,24 @@ Writes, next to this file:
                               the small inputs, lane and compat engines,
                               and their record: block size, kind, lanes,
                               engine, n, sha256;
+  * *.host, host.json         ans_tpu's blobs of the byte splitters
+                              (vbyte, streamvbyte) and of every host codec
+                              and host-entropy composite (shuff under the
+                              lane engine, arith, optpfor, fse, huffzero,
+                              vbytefse, streamvbytefse, vbytehuffzero,
+                              streamvbytehuffzero, entropy_only) on small
+                              inputs, and their record: input, method, n,
+                              sha256;
+  * fullwidth_host.json       (--host-full-width) the records of the host
+                              codecs at full width: the four host-entropy
+                              composites on zipf20 (n = 2^25) and shuff,
+                              arith, optpfor, fse and huffzero on zipf20
+                              drawn at n = 2^22 (the host-bound coders'
+                              cut); slow on ans_tpu's pure-Python bodies:
+                              build ans_tpu's native library first
+                              (`python -m ans_tpu.native.build`) in a
+                              scratch copy of the tree and run the script
+                              there;
   * fullwidth_pseudo.json     (--pseudo-full-width) PseudoAdaptive
                               containers at the default block size 2^17
                               and lane count (S = 32): int and msb on
@@ -118,6 +137,17 @@ PSEUDO = (
      "auto"),
 )
 
+# (blob file, input file, registry method) of ans_tpu's byte splitters,
+# host codecs and host-entropy composites (lane engine)
+HOST_BLOBS = (
+    *((f"{inp[:-4]}.{m}.host", inp, m)
+      for inp in ("zipf60k.u32", "wide5k.u32")
+      for m in ("vbyte", "streamvbyte", "optpfor", "fse", "huffzero",
+                "vbytefse", "streamvbytefse", "vbytehuffzero",
+                "streamvbytehuffzero", "entropy_only")),
+    *((f"zipf60k.{m}.host", "zipf60k.u32", m) for m in ("shuff", "arith")),
+)
+
 FULL_N, FULL_SEED, FULL_LANES = 1 << 25, 42, 4096
 DENSE_N = 1 << 22
 
@@ -163,10 +193,10 @@ def zipf60k() -> np.ndarray:
     return zipf(np.random.default_rng(3), 60000, 1 << 20)
 
 
-def zipf20_input() -> np.ndarray:
-    """tools/bench_grouped.py's zipf20 at n = 2^25."""
+def zipf20_input(n: int = FULL_N) -> np.ndarray:
+    """tools/bench_grouped.py's zipf20 (at n = 2^25 unless `n` says)."""
     from ans_tpu.utils.zipf import zipf
-    return zipf(np.random.default_rng(0), FULL_N, 1 << 20)
+    return zipf(np.random.default_rng(0), n, 1 << 20)
 
 
 def dense22_input() -> np.ndarray:
@@ -264,6 +294,11 @@ def main(argv=None) -> None:
                     help="add this numpy's zipf20 stream's BlockCodec "
                          "containers (ANSfold-2, ANSfold-7; D = 32) to "
                          "fullwidth_blocked.json")
+    ap.add_argument("--host-full-width", action="store_true",
+                    help="add this numpy's zipf20 streams under the host "
+                         "codecs (the four host-entropy composites at "
+                         "n = 2^25; shuff, arith, optpfor, fse, huffzero at "
+                         "n = 2^22) to fullwidth_host.json")
     ap.add_argument("--pseudo-full-width", action="store_true",
                     help="add this numpy's zipf20 and zipf125 streams' "
                          "PseudoAdaptive containers (int and msb on zipf20, "
@@ -310,6 +345,16 @@ def main(argv=None) -> None:
                        "n": len(x), "sha256": sha256(blob)})
     (HERE / "pseudo.json").write_text(json.dumps(pseudo, indent=1) + "\n")
 
+    from ans_tpu import models
+    host = []
+    for blob_name, inp, method in HOST_BLOBS:
+        x = inputs[inp]
+        blob = models.get(method).encode(x)
+        (HERE / blob_name).write_bytes(blob)
+        host.append({"blob": blob_name, "input": inp, "method": method,
+                     "n": len(x), "sha256": sha256(blob)})
+    (HERE / "host.json").write_text(json.dumps(host, indent=1) + "\n")
+
     if args.full_width:
         add_full_width("bench", full_width_input(), np.__version__)
     if args.grouped_full_width:
@@ -322,6 +367,9 @@ def main(argv=None) -> None:
                        ("ANSmsb", "ANSrfold-2"))
     if args.blocked_full_width:
         add_blocked_full_width(zipf20_input(), np.__version__)
+    if args.host_full_width:
+        add_host_full_width({FULL_N: zipf20_input(),
+                             HOST_N: zipf20_input(HOST_N)}, np.__version__)
     if args.pseudo_full_width:
         add_pseudo_full_width({"zipf20": zipf20_input(),
                                "zipf125": zipf125_input()}, np.__version__)
@@ -524,6 +572,44 @@ def add_bytes_full_width(x: np.ndarray, numpy_version: str) -> None:
                          if (e["input_sha256"], e["method"])
                          != (input_sha, method)]
         rec["inputs"].append(entry)
+    path.write_text(json.dumps(rec, indent=1) + "\n")
+
+
+# the host-entropy composites (split on the device, entropy on the host)
+# at full width, and the host coders at HOST_N
+HOST_COMPOSITES = ("vbytefse", "streamvbytefse", "vbytehuffzero",
+                   "streamvbytehuffzero")
+HOST_CODERS = ("shuff", "arith", "optpfor", "fse", "huffzero")
+HOST_N = 1 << 22
+
+
+def add_host_full_width(xs: dict, numpy_version: str) -> None:
+    """Encode zipf20 at n = 2^25 (xs[FULL_N]) with HOST_COMPOSITES and at
+    n = HOST_N (xs[HOST_N], its own draw) with HOST_CODERS through ans_tpu's
+    registry (lane engine), and merge the entries into fullwidth_host.json
+    (keyed by the input's sha256 and the method)."""
+    from ans_tpu import models
+    path = HERE / "fullwidth_host.json"
+    rec = (json.loads(path.read_text()) if path.exists() else {
+        "generators": {"zipf20": "ans_tpu.utils.zipf.zipf(np.random."
+                                 "default_rng(0), n, 2**20)"},
+        "note": "the composites are a u32 count of split bytes, then the "
+                "host coder's blob of the split stream", "inputs": []})
+    for n, methods in ((FULL_N, HOST_COMPOSITES), (HOST_N, HOST_CODERS)):
+        x = xs[n]
+        input_sha = sha256(x.tobytes())
+        for method in methods:
+            blob = models.get(method).encode(x)
+            entry = {"input": "zipf20", "n": n, "method": method,
+                     "numpy": numpy_version, "input_sha256": input_sha,
+                     "blob_len": len(blob), "blob_sha256": sha256(blob)}
+            if method in HOST_COMPOSITES:
+                entry["split_len"] = int.from_bytes(blob[:4], "little")
+            rec["inputs"] = [e for e in rec["inputs"]
+                             if (e["input_sha256"], e["method"])
+                             != (input_sha, method)]
+            rec["inputs"].append(entry)
+            print(f"{method} n={n}: {len(blob)} bytes", flush=True)
     path.write_text(json.dumps(rec, indent=1) + "\n")
 
 

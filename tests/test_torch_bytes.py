@@ -148,11 +148,17 @@ def test_registry_names_and_devices():
                                   "streamvbytehuffzero", "entropy",
                                   "entropy_only", "arith", "optpfor"])
 def test_host_codecs_still_unported(name):
-    """The host tANS / shuff composites wait for the host-codec slice and
-    say so."""
+    """The host tANS / shuff composites, which waited here for the
+    host-codec slice: ported, each writes ans_tpu's bytes of a small zipf
+    input and decodes them (tests/test_torch_host_codecs.py holds them on
+    the conftest datasets)."""
     assert name in ref_models.available()
-    with pytest.raises(KeyError, match="ROADMAP queue 1 item 8"):
-        models.get(name, device="cpu")
+    x = (np.random.default_rng(8).zipf(1.3, 3000) % 5000).astype(np.uint32)
+    codec = models.get(name, device="cpu")
+    blob = codec.encode(x)
+    assert blob == ref_models.get(name).encode(x)
+    if not name.startswith("entropy"):
+        np.testing.assert_array_equal(codec.decode(blob, len(x)), x)
 
 
 @pytest.mark.parametrize("name", BYTE_METHODS)

@@ -82,22 +82,22 @@ def test_compat_blobs_equal_ans_tpu(datasets, dataset, method):
 def test_compat_registry_names():
     """The compat engine names ans_tpu's compat ANS methods and shuff; the
     engine-independent methods of the port appear under both engines, and
-    a name the port lacks raises the ROADMAP KeyError under either."""
+    each engine names exactly ans_tpu's (the host codecs, which raised
+    here until they were ported, among them)."""
     compat, lane = set(models.available("compat")), set(models.available())
-    assert compat - lane == {"shuff"} and lane <= compat
+    assert compat == lane
     ans_names = {n for n in jmodels._COMPAT}
     assert ans_names <= compat and ans_names <= lane
     for name in ("vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS",
-                 "pseudo_adaptive"):
+                 "pseudo_adaptive", "huffzero", "arith", "vbytefse"):
         assert name in compat and name in lane
         assert type(models.get(name, engine="compat", device="cpu")) is type(
             models.get(name, device="cpu"))
-    assert set(jmodels.available("compat")) >= compat
-    for engine in ("lane", "compat"):
-        with pytest.raises(KeyError, match="ROADMAP queue 1 item 8"):
-            models.get("huffzero", engine=engine, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP queue 1 item 8"):
-        models.get("shuff", device="cpu")
+    assert set(jmodels.available("compat")) == compat
+    assert set(jmodels.available("lane")) == lane
+    assert type(models.get("shuff", device="cpu")).__name__ == "Shuff"
+    assert type(models.get("shuff", engine="compat", device="cpu")
+                ).__name__ == "ShuffCompat"
     with pytest.raises(KeyError, match="unknown engine"):
         models.get("ANS", engine="xla", device="cpu")
     assert isinstance(models.get("ANSfold-3", engine="compat", device="cpu"),

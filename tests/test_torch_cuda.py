@@ -1670,3 +1670,60 @@ def test_cli_roundtrip_on_card(cuda, tmp_path, capsys):
         assert cli(["decompress", str(out), str(dst)]) == 0
         np.testing.assert_array_equal(np.fromfile(dst, dtype="<u4"), x)
     capsys.readouterr()
+
+
+# the host-entropy composites: K7 splits on the card, the split stream
+# crosses to the host once, the host library codes it, and K9 / K8 join
+# the decoded stream on the card
+
+HOST_COMPOSITES = {"vbytefse": "vbyte_decode_launches",
+                   "streamvbytefse": "svb_decode_launches",
+                   "vbytehuffzero": "vbyte_decode_launches",
+                   "streamvbytehuffzero": "svb_decode_launches"}
+
+
+@pytest.mark.parametrize("small", [True, False])
+@pytest.mark.parametrize("n", [C - 1, C + 1, D - 1, D, D + 1, 2 * D + 1,
+                               bytesplit.SVB_CHUNK * 3 + 2])
+@pytest.mark.parametrize("name", sorted(HOST_COMPOSITES))
+def test_host_composites_on_card_equal_cpu(cuda, name, n, small):
+    """At split lengths around the K7 / K8 / K9 chunk multiples (one-byte
+    values: the vbyte stream is n bytes long), and on values of every
+    byte length: the card's blob equals the CPU path's (held to ans_tpu's
+    by the CPU tests), both decode it, and each card call is one K7 launch
+    on encode and one K9 / K8 launch on decode."""
+    from ans_tpu_torch import models
+    x = _mixed(n, n + 3) & (0x7F if small else 0xFFFFFFFF)
+    counter = HOST_COMPOSITES[name]
+    k7, dec = bytesplit.encode_launches, getattr(bytesplit, counter)
+    on_card = models.get(name, device=cuda)
+    blob = on_card.encode(x)
+    assert bytesplit.encode_launches == k7 + 1
+    if small and name.startswith("vbyte"):
+        assert int.from_bytes(blob[:4], "little") == n
+    on_cpu = models.get(name, device="cpu")
+    assert blob == on_cpu.encode(x)
+    np.testing.assert_array_equal(on_card.decode(blob, len(x)), x)
+    assert getattr(bytesplit, counter) == dec + 1
+    np.testing.assert_array_equal(on_cpu.decode(blob, len(x)), x)
+
+
+def test_benchmark_driver_on_card(cuda, tmp_path, capsys):
+    """python -m ans_tpu_torch.drivers.benchmark on its default device:
+    every round trip it asserts passes, its lines equal the CPU run's but
+    for the time columns, and K1, K2, K7 and the decode kernels ran."""
+    from ans_tpu_torch.drivers import benchmark
+    src = tmp_path / "zipf.u32"
+    _values(40000, 13).astype("<u4").tofile(src)
+    argv = ["-i", str(src), "--runs", "1", "--methods",
+            "ANSfold-2,vbyteANS,vbytefse,streamvbytehuffzero,shuff,arith"]
+    k1, k2, k7 = encode.launches, place.launches, bytesplit.encode_launches
+    benchmark.main(argv)
+    card = capsys.readouterr().out.splitlines()
+    assert encode.launches > k1 and place.launches > k2
+    assert bytesplit.encode_launches > k7
+    benchmark.main([*argv, "--device", "cpu"])
+    cpu = capsys.readouterr().out.splitlines()
+    assert len(card) == len(cpu) == 6
+    for a, b in zip(card, cpu):
+        assert a.split("\t\t")[:-3] == b.split("\t\t")[:-3]

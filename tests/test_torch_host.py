@@ -1,10 +1,14 @@
 """ans_tpu_torch host layers against ans_tpu: the NumPy copies of the
 constants, the frame search and the preludes, the interpolative coder,
 the byte coder's model, the compat coders, the lane-count policy, the
-fmt-2 framing, the lane tables, the grouped slot layout and the
-tail-escape plan must equal the reference's exactly, and the package
-must import with neither JAX nor ans_tpu."""
+fmt-2 framing, the lane tables, the grouped slot layout, the
+tail-escape plan, the host codecs, utils/ and the drivers must equal the
+reference's exactly, and the package must import with neither JAX nor
+ans_tpu."""
 
+import dataclasses
+import importlib
+import inspect
 import os
 import re
 import subprocess
@@ -42,6 +46,13 @@ from ans_tpu_torch.reference_model import (byte_model, interp, mappings,
                                            shuff_compat, vbyte)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# ans_tpu/drivers, each copied into ans_tpu_torch/drivers
+DRIVERS = ("benchmark", "bucket_skew", "fold_effectiveness",
+           "generate_bwtmtf", "generate_inputs", "generate_rlz",
+           "lower_order_entropy", "prelude", "pseudo_adaptive",
+           "rescale_freqs", "shuff", "table_effectiveness",
+           "table_efficiency")
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 12800, 12801, 409600, 10 ** 6,
@@ -308,7 +319,16 @@ def test_imports_without_jax():
                 "ans_tpu_torch.reference_model.parity",
                 "ans_tpu_torch.native", "ans_tpu_torch.native.build",
                 "ans_tpu_torch.native.binding", "ans_tpu_torch.container",
-                "ans_tpu_torch.__main__"} <= set(names), names
+                "ans_tpu_torch.__main__", "ans_tpu_torch.models.tans",
+                "ans_tpu_torch.models.shuff", "ans_tpu_torch.models.arith",
+                "ans_tpu_torch.models.pfor", "ans_tpu_torch.runtime",
+                "ans_tpu_torch.utils.bwt", "ans_tpu_torch.utils.io",
+                "ans_tpu_torch.utils.metrics", "ans_tpu_torch.utils.stats",
+                "ans_tpu_torch.utils.timing", "ans_tpu_torch.utils.zipf",
+                "ans_tpu_torch.utils.profiling",
+                "ans_tpu_torch.drivers._cli"} | {
+                    f"ans_tpu_torch.drivers.{d}" for d in DRIVERS
+                } <= set(names), names
         import chip_smoke
         import numpy as np
         from ans_tpu_torch import models
@@ -331,6 +351,13 @@ def test_imports_without_jax():
             pa = models.get("pseudo_adaptive", device="cpu")
             pa.block_size, pa.engine = 1000, engine
             assert (pa.decode(pa.encode(x)) == x).all()
+        for name in ("shuff", "arith", "optpfor", "fse", "huffzero",
+                     "vbytefse", "streamvbytehuffzero"):
+            codec = models.get(name, device="cpu")
+            assert (codec.decode(codec.encode(x), len(x)) == x).all(), name
+        from ans_tpu_torch.drivers import table_effectiveness
+        table_effectiveness.run([("x", x)], [("arith", models.get(
+            "arith", device="cpu"))])
         from ans_tpu_torch import container
         for name in ("ANS", "ANSfold-2", "ANSrfold-2", "ANSmsb", "shuff"):
             buf = container.compress(x, name, "compat", device="cpu")
@@ -339,12 +366,12 @@ def test_imports_without_jax():
                         and m.split(".")[0] in ("jax", "jaxlib", "ans_tpu"))
         assert not loaded, loaded
         print("ok")
-    """)
+    """).replace("DRIVERS", repr(DRIVERS))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_port_sources_import_neither_jax_nor_ans_tpu():
@@ -358,7 +385,11 @@ def test_port_sources_import_neither_jax_nor_ans_tpu():
     for name in ("probe.py", "container.py", "__main__.py",
                  "native/__init__.py", "native/build.py",
                  "native/binding.py", "reference_model/shuff_compat.py",
-                 "reference_model/parity.py"):
+                 "reference_model/parity.py", "models/tans.py",
+                 "models/shuff.py", "models/arith.py", "models/pfor.py",
+                 "runtime.py", "utils/bwt.py", "utils/profiling.py",
+                 "utils/zipf.py", "drivers/_cli.py",
+                 *(f"drivers/{d}.py" for d in DRIVERS)):
         assert Path(REPO, "ans_tpu_torch", name) in files, name
     for path in files:
         hits = pattern.findall(path.read_text())
@@ -869,3 +900,83 @@ def test_grouped_device_tables(kind):
         np.testing.assert_array_equal(dec.table.numpy().view(np.uint32),
                                       want)
         assert dec.NR == tables.max_renorm_rounds(lay.log2m)
+
+
+# --------------------------------------------------------------------------
+# the copies of the host codecs, utils/ and the drivers
+# --------------------------------------------------------------------------
+
+# module -> the definitions that differ from ans_tpu's on purpose (each
+# held to ans_tpu's behaviour by tests/test_torch_host_codecs.py or
+# tests/test_torch_drivers.py): the library reached through `_native`
+# (ByteTans, mtf), the device of the port's drivers (--device), and the
+# composites' factories, which take it
+COPIES = {
+    "models.tans": {"ByteTans"}, "models.shuff": set(),
+    "models.arith": set(), "models.pfor": set(), "utils.bwt": {"mtf"},
+    "utils.io": set(), "utils.metrics": set(), "utils.stats": set(),
+    "utils.timing": set(), "utils.zipf": set(),
+    "drivers._cli": {"make_parser", "select_methods"},
+    "drivers.fold_effectiveness": {"run", "main"},
+    "drivers.prelude": {"run", "main"},
+    "drivers.pseudo_adaptive": {"run", "main"},
+    **{f"drivers.{d}": set() for d in DRIVERS if d not in (
+        "fold_effectiveness", "prelude", "pseudo_adaptive")},
+}
+
+
+def _own_definitions(mod):
+    """name -> object of what `mod` itself defines (not its imports)."""
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("__") and not inspect.ismodule(v)
+            and getattr(v, "__module__", mod.__name__) == mod.__name__}
+
+
+@pytest.mark.parametrize("name", sorted(COPIES))
+def test_host_module_copies(name):
+    """Each definition of ans_tpu's module is in the port's copy, with the
+    same source (`_native()` read as the module global `_native`) or the
+    same value, but those listed in COPIES."""
+    ref = importlib.import_module(f"ans_tpu.{name}")
+    port = importlib.import_module(f"ans_tpu_torch.{name}")
+    mine = _own_definitions(port)
+    for key, obj in _own_definitions(ref).items():
+        if key == "_native":
+            continue
+        assert key in mine, (name, key)
+        if key in COPIES[name]:
+            continue
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            assert inspect.getsource(mine[key]) == inspect.getsource(
+                obj).replace("_native()", "_native"), (name, key)
+        elif isinstance(obj, np.ndarray):
+            np.testing.assert_array_equal(mine[key], obj)
+        elif dataclasses.is_dataclass(obj):
+            assert dataclasses.asdict(mine[key]) == dataclasses.asdict(obj)
+        else:
+            assert mine[key] == obj, (name, key)
+
+
+def test_byte_codec_copies():
+    """ByteShuff, HuffZero and EntropyOnly are ans_tpu's classes (ByteShuff
+    with its lazy import hoisted, HuffZero's empty check inlined)."""
+    from ans_tpu.models import bytes as jbytes
+    from ans_tpu_torch.models import bytes as pbytes
+    ours = inspect.getsource(pbytes.ByteShuff)
+    want = inspect.getsource(jbytes.ByteShuff).replace(
+        "        from .shuff import Shuff\n", "")
+    assert ours.replace("  A copy of\n    ans_tpu's, on the host.", "") \
+        == want
+    assert inspect.getsource(pbytes.EntropyOnly).replace(
+        "        values = np.asarray", "        from ..utils import metrics\n"
+        "        values = np.asarray") == inspect.getsource(jbytes.EntropyOnly)
+    assert pbytes.ByteShuff.BLOCK == jbytes.ByteShuff.BLOCK == 128 * 1024
+
+
+def test_utils_reexports():
+    import ans_tpu.utils as jutils
+
+    import ans_tpu_torch.utils as putils
+    names = [k for k in vars(jutils) if not k.startswith("_")
+             and not inspect.ismodule(vars(jutils)[k])]
+    assert names and all(hasattr(putils, k) for k in names)

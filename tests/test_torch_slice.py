@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from ans_tpu import models as ref_models
 from ans_tpu.models import engine as ref_engine
 from ans_tpu.models.ans import AnsFold as RefAnsFold
 from ans_tpu.models.ans import AnsInt as RefAnsInt
@@ -123,13 +124,18 @@ def test_card_inputs_are_the_reference_inputs():
 
 
 def test_registry():
+    """Every name of ans_tpu's registry (the host codecs since they were
+    ported)."""
     assert models.available() == sorted(
         ["ANS", "ANSmsb"] + [f"ANSfold-{f}" for f in range(1, 9)]
         + [f"ANSrfold-{f}" for f in range(1, 9)]
         + [f"ANSsint-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
         + [f"ANSsmsb-{h}" for h in (1, 5, 10, 20, 40, 80, 160, 320)]
         + ["vbyte", "streamvbyte", "vbyteANS", "streamvbyteANS",
-           "pseudo_adaptive"])
+           "pseudo_adaptive", "optpfor", "OptPFor", "shuff", "arith", "fse",
+           "huffzero", "huff0", "vbytefse", "streamvbytefse",
+           "vbytehuffzero", "streamvbytehuffzero", "entropy_only",
+           "entropy"]) == ref_models.available()
     codec = models.get("ANSfold-3", device="cpu")
     assert codec.fidelity == 3 and codec.name == "ANSfold-3"
     assert models.get("ANSfold-3", lanes=64, device="cpu").lanes == 64
@@ -167,13 +173,21 @@ def test_registry_msb_and_rfold_methods(name, ref):
 @pytest.mark.parametrize("name", ["vbytefse", "streamvbytehuffzero", "shuff",
                                   "optpfor", "no-such-method"])
 def test_unported_names_raise(name):
-    """(vbyte and streamvbyteANS stood here until the byte path was
-    ported, ANSmsb, ANSsmsb-5 and ANSrfold-2 until the msb and rfold
-    methods were, and pseudo_adaptive until the ATFP container was; host
-    codecs took their places.)"""
-    with pytest.raises(KeyError, match="ROADMAP"):
+    """A name outside ans_tpu's registry raises KeyError listing the known
+    ones, as ans_tpu's does; the host codecs that stood here until they
+    were ported (after vbyte, streamvbyteANS, the msb and rfold methods
+    and pseudo_adaptive) now build, and the prepared lane API refuses them
+    as not lane-format."""
+    if name in ref_models.available():
+        assert models.get(name, device="cpu").name == ref_models.get(
+            name).name
+        with pytest.raises(KeyError, match="not a lane-format"):
+            models.prepare_decoder(name, b"", 1, device="cpu")
+        return
+    with pytest.raises(KeyError, match="unknown method 'no-such-method'; "
+                                       "known: .*'vbytefse'"):
         models.get(name, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="unknown method"):
         models.prepare_decoder(name, b"", 1, device="cpu")
 
 
