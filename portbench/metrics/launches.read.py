@@ -1,0 +1,9 @@
+"""Decode launches (K3, K4, K5) per request of the window, from the
+program's launch counters (the read cells; one launch decodes every
+section of a blocked container)."""
+
+from portbench.readings import launches
+
+
+def read(run):
+    return launches(run, "decode")
