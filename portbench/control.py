@@ -9,7 +9,9 @@ low bytes a byte fold strips are lost) and codes that with the plain
 reference: the blob it writes, the values its decode returns and the
 streams its encode returns stand where the program's would, and
 portbench/check.py judges them against the lossless reference of the
-input: the pool's first array, made on the device as a run makes it.
+input: the pool's first array, made on the device as a run makes it.  In
+a sharded cell, rank 0's shard of it, the model (the program's and the
+control's alike) from the counts of every rank's shard.
 Each seed's numbers are printed beside their limits, then one JSON line
 with every seed's readings and the least of each (the upper reading the
 limits are set below).  The control must fail; the benchmark's own runs
@@ -26,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from . import check, inputs, manifest, reference
+from . import check, inputs, manifest, ranks, reference
 
 
 def readings(cell, seed: int, device, n: int | None = None) -> dict:
@@ -35,11 +37,21 @@ def readings(cell, seed: int, device, n: int | None = None) -> dict:
     n = int(config["n"])
     method, lanes = config["method"], int(config["lanes"])
     sections = int(cell.mix.get("sections", 0))
-    x = inputs.make(config, seed, device, count=1)[0]
-    ref = reference.encode(method, x, lanes, sections)
-    lossy = reference.lossy_values(x)
-    ctl = reference.encode(method, lossy, lanes, sections)
-    out = check.blob([(ctl.blob, ref.blob)], n)
+    if cell.mix.get("shards"):
+        per = -(-n // cell.chips)
+        shards = [inputs.shard(config, seed, r, min(per, n - r * per),
+                               device, count=1)[0]
+                  for r in range(cell.chips)]
+        lossy = [reference.lossy_values(s) for s in shards]
+        counts, lossy_counts = (ranks.summed_counts(a)
+                                for a in (shards, lossy))
+        x, lossy = shards[0], lossy[0]
+    else:
+        x = inputs.make(config, seed, device, count=1)[0]
+        lossy, counts, lossy_counts = reference.lossy_values(x), None, None
+    ref = reference.encode(method, x, lanes, sections, counts)
+    ctl = reference.encode(method, lossy, lanes, sections, lossy_counts)
+    out = check.blob([(ctl.blob, ref.blob)], len(x))
     if cell.mix["call"] == "decode":
         out.update(check.values(
             [(torch.from_numpy(lossy.view(np.int32)).to(device), x)]))

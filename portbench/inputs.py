@@ -13,6 +13,12 @@ pool is drawn from one torch.Generator on the device, seeded by `--seed`,
 in a few large float64 calls an array, and handed to the host as u32
 arrays.  Every seed draws the same number of values of the same
 distribution.
+
+A sharded configuration (a mix with `shards`) holds each array of the
+pool over several processes: a process draws only its shard of each
+array, from a generator of its own seeded by (seed, rank), so that the
+shards together are n independent draws of the distribution
+(`shard`).
 """
 
 from __future__ import annotations
@@ -76,4 +82,16 @@ def make(config: dict, seed: int, device, n: int | None = None,
     g = generator(seed, device)
     size = int(n or config["n"])
     return [zipf(g, size, **config["input"])
+            for _ in range(count or pool_size(config))]
+
+
+def shard(config: dict, seed: int, rank: int, length: int, device,
+          count: int | None = None) -> list:
+    """Process `rank`'s shards of the pool for `seed`: `count` (default
+    the pool size) host u32 arrays of `length` values, drawn on `device`
+    from the generator of (seed, rank)."""
+    (word,) = np.random.SeedSequence([seed % (1 << 64), rank]
+                                     ).generate_state(1, np.uint64)
+    g = generator(int(word), device)
+    return [zipf(g, length, **config["input"])
             for _ in range(count or pool_size(config))]

@@ -11,7 +11,12 @@ under `portbench/`:
   * metrics/<metric>.py           the reader of one metric.
 
 A later cell, mix or metric is new files and new entries; no file that is
-there changes.
+there changes, as long as its mix stages a call the harness knows
+(portbench/program.py: a prepared decode or encode of one stream or of a
+container of sections, or with `shards` each rank's shard of a container
+under one model).  A cell's `chips` is the number of processes it runs,
+one a card: a cell of more than one runs as that many ranks of one
+process group (portbench/ranks.py, portbench/run.py).
 """
 
 from __future__ import annotations

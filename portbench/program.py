@@ -6,13 +6,23 @@ its model-half seconds come from the program's own `utils.stats` record)
 and prepares a decoder of that blob; for an encode mix it prepares an
 encoder of the array, whose first call writes the blob.  One stream
 (`models.prepare_decoder` / `models.prepare_encoder`) or a blocked
-container of `sections` sections (`parallel.BlockCodec`).  A request is
-one call of the next staged object, on device-resident data.  The
-benchmark reads the program's launch counters and nothing else of it.
+container of `sections` sections (`parallel.BlockCodec`).  A sharded mix
+(`shards`) stages, on each rank, its shard of every array: encoded by
+`parallel.multihost.MultiHostBlockCodec.encode_local`, whose model comes
+from the histogram summed over the ranks (the program's own
+all-reduces), and decoded by that codec's `BlockCodec.prepare_decoder`;
+its model half is the self time of the program's `model.build` spans
+(`BlockCodec._front`, less its `tables` and `stage`), recorded under
+`utils.stats.tracing()` while the shards are staged.
+A request is one call of the next staged object, on device-resident
+data.  The benchmark reads the program's launch counters and nothing
+else of it; the ranks join the program's own process group (`join`) and
+find their shards' bounds through it (`local_slice`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -35,13 +45,26 @@ def stage(config: dict, mix: dict, xs: list, device) -> Staged:
 
     method, lanes = config["method"], int(config["lanes"])
     sections, engine = int(mix.get("sections", 0)), mix.get("engine")
-    kind = mix["call"]
+    kind, shards = mix["call"], bool(mix.get("shards"))
     if kind not in ("decode", "encode"):
         raise ValueError(f"unknown call {kind!r}")
-    bc = BlockCodec(method, sections, lanes, device=device) if sections \
-        else None
+    if shards and (kind != "decode" or not sections):
+        raise ValueError("a sharded mix decodes a container of sections")
+    if shards:
+        from ans_tpu_torch.parallel.multihost import MultiHostBlockCodec
+        sharded = MultiHostBlockCodec(method, sections, lanes, device=device)
+        bc = sharded.codec
+    else:
+        bc = BlockCodec(method, sections, lanes, device=device) \
+            if sections else None
     calls, blobs = [], []
-    with stats.recording() as rec:
+    # a sharded mix's model half is read from the program's spans: in the
+    # trace that is on already (portbench/spans.py), else in one of its own
+    outer = stats._trace
+    spans = (stats.tracing() if shards and outer is None
+             else contextlib.nullcontext(outer))
+    with stats.recording() as rec, spans as trace:
+        first = len(trace.spans) if trace is not None else 0
         for x in xs:
             if kind == "encode":
                 pe = (bc.prepare_encoder(x) if sections else
@@ -51,7 +74,8 @@ def stage(config: dict, mix: dict, xs: list, device) -> Staged:
                 calls.append(pe)
                 blobs.append(blob if sections else pe.prelude + blob)
             elif sections:
-                blobs.append(bc.encode(x))
+                blobs.append(sharded.encode_local(x) if shards
+                             else bc.encode(x))
                 calls.append(bc.prepare_decoder(blobs[-1],
                                                 engine_name=engine))
             else:
@@ -59,7 +83,24 @@ def stage(config: dict, mix: dict, xs: list, device) -> Staged:
                                         lanes=lanes).encode(x))
                 calls.append(models.prepare_decoder(
                     method, blobs[-1], len(x), device=device, engine=engine))
-    return Staged(kind, calls, blobs, sections, rec.prelude_time_ns or None)
+    build_ns = rec.prelude_time_ns
+    if shards:
+        self_ns = trace.self_ns()
+        build_ns = sum(self_ns[i] for i in range(first, len(trace.spans))
+                       if trace.spans[i].name == "model.build")
+    return Staged(kind, calls, blobs, sections, build_ns or None)
+
+
+def join(address: str, world: int, rank: int) -> None:
+    """Join the program's process group of `world` ranks at `address`."""
+    from ans_tpu_torch.parallel import multihost
+    multihost.initialize(address, world, rank)
+
+
+def local_slice(n: int) -> tuple[int, int]:
+    """[start, stop) of this rank's shard of an array of n values."""
+    from ans_tpu_torch.parallel import multihost
+    return multihost.local_block_slice(n)
 
 
 def decoded_values(out: torch.Tensor, n: int, sections: int) -> torch.Tensor:

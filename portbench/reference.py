@@ -304,16 +304,26 @@ class Model:
     grouped: bool            # the frequency-grouped slot layout
 
 
-def model(kind: str, fidelity: int, x: np.ndarray) -> Model:
+def model(kind: str, fidelity: int, x: np.ndarray,
+          counts: np.ndarray | None = None) -> Model:
     """The frame and prelude of `x` as the coder derives them: the byte
     fold's histogram (its frames keep every frequency under 2^16 - 1), or
-    the values' own, whose large live alphabets take the tail escape."""
+    the values' own, whose large live alphabets take the tail escape.
+    `counts`: the raw-value histogram the model is built from (default:
+    x's own; a shard's is that of every shard)."""
     if kind == "fold":
         sym, nb = fold_map(x, fidelity)
-        nfreqs = adjust_freqs(np.bincount(sym), True)
+        if counts is None:
+            hist = np.bincount(sym)
+        else:
+            live = np.flatnonzero(counts)
+            hist = np.bincount(fold_map(live, fidelity)[0],
+                               weights=counts[live]).astype(np.int64)
+        nfreqs = adjust_freqs(hist, True)
         frame = nfreqs
     else:
-        nfreqs = adjust_freqs(np.bincount(x), False)
+        nfreqs = adjust_freqs(np.bincount(x) if counts is None else counts,
+                              False)
         plan = escape_plan(nfreqs)
         if plan is None:
             sym, nb = x, np.zeros(len(x), dtype=np.uint32)
@@ -447,15 +457,17 @@ class Encoded:
     exception_bytes: int     # bytes of the exception channel
 
 
-def encode(method: str, x: np.ndarray, lanes: int,
-           sections: int = 0) -> Encoded:
+def encode(method: str, x: np.ndarray, lanes: int, sections: int = 0,
+           counts: np.ndarray | None = None) -> Encoded:
     """The blob of `x` under `method` at `lanes` lanes: one lane-format
     stream after the prelude (sections=0), or the ATFB container of
-    `sections` sections of ceil(n / D) values."""
+    `sections` sections of ceil(n / D) values.  `counts`: the raw-value
+    histogram of the model (default: x's own), such as the sum over the
+    shards of one array, each shard coded under the model of all."""
     kind, fidelity = parse_method(method)
     x = np.ascontiguousarray(x, dtype=np.uint32)
     n = len(x)
-    mdl = model(kind, fidelity, x)
+    mdl = model(kind, fidelity, x, counts)
     nb = mdl.nb
     frame = mdl.frame_freqs
     M = int(frame.sum())

@@ -58,6 +58,9 @@ Readings (the recorder's; none is in BENCHMARK.json):
     s (where `prepare_s` goes: the model build, the tables, the staging,
     the priming encode).
 
+It runs cells of one card; a cell over several (portbench/ranks.py) is
+refused.
+
 `run_cell`, `_profiled` and `main` repeat portbench/run.py's sequence and
 portbench/trace.py's profiler; the rest is what those two would import
 to report these readings.
@@ -468,6 +471,10 @@ def main(argv=None) -> int:
     cell = manifest.cell(args.workload)
     if not torch.cuda.is_available():
         _log(json.dumps({"error": "no card", "workload": cell.name}))
+        return 2
+    if cell.chips > 1:
+        _log(json.dumps({"error": "spans runs cells of one card",
+                         "workload": cell.name, "chips": cell.chips}))
         return 2
     res = run_cell(cell, args.seed, args.seconds, bool(args.spans), "cuda:0")
     res["card"] = run.card()

@@ -42,15 +42,20 @@ def test_names_units_and_keys(bench):
         assert c["file"].startswith("portbench/")
         config = json.loads((ROOT / c["file"]).read_text())
         assert config["name"] == c["name"] and config["source"] == c["source"]
-        assert c["reduced"] == config["reduced"] == []
+        assert c["reduced"] == config["reduced"]
+        assert len(c["reduced"]) <= 16
+        assert all(NAME.match(k) and k in config for k in c["reduced"])
         assert config["assumed"]["pool"] >= 2
         names.append(c["name"])
     for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and w["config"] in names
+        assert w["chips"] in (1, 4) and w["config"] in names
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (ROOT / "portbench/mixes" / f"{w['traffic']}.json").exists()
         names.append(w["name"])
+    # a cell of four chips: at most a quarter of the cells, and one always
+    fours = sum(w["chips"] == 4 for w in bench["workloads"])
+    assert fours <= max(1, len(bench["workloads"]) // 4)
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert (ROOT / "portbench/metrics" / f"{m['name']}.py").exists()
@@ -68,7 +73,7 @@ def test_names_units_and_keys(bench):
                           "moves", "workloads"}
         assert m["moves"] in e2e and set(m["workloads"]) <= cells
         assert m["source"] in ("device_trace", "program_span",
-                               "program_counter")
+                               "program_counter", "host_clock")
         moved = next(e for e in bench["end_to_end"] if e["name"] == m["moves"])
         assert set(m["workloads"]) <= set(moved.get("workloads", cells))
     for name in names:

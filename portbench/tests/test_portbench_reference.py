@@ -82,6 +82,29 @@ def test_reference_writes_the_programs_bytes(case, sections):
     assert np.array_equal(back, x)
 
 
+@pytest.mark.parametrize("case", ["ans-grouped", "ans-escape", "ans-small",
+                                  "fold7-grouped"])
+def test_a_shard_under_the_counts_of_every_shard(case):
+    """The reference under an array's own counts writes what it writes
+    without them; a shard under the counts of both halves writes the
+    program's shard (BlockCodec under the summed histogram, the hook of
+    its multi-process codec) and not the shard's own container."""
+    from ans_tpu_torch.parallel import BlockCodec
+    method, make, lanes = CASES[case]
+    x = make()
+    assert (reference.encode(method, x, lanes, 4, np.bincount(x)).blob
+            == reference.encode(method, x, lanes, 4).blob)
+    half, counts = x[:len(x) // 2], np.bincount(x)
+    ref = reference.encode(method, half, lanes, 4, counts)
+    kind, fidelity = reference.parse_method(method)
+    hist = (np.bincount(reference.fold_map(x, fidelity)[0]) if kind == "fold"
+            else counts)
+    prog = BlockCodec(method, 4, lanes, device="cpu").encode(
+        half, hist_override=hist)
+    assert ref.blob == prog
+    assert ref.blob != reference.encode(method, half, lanes, 4).blob
+
+
 def test_the_escape_case_escapes():
     x = _uniform_tail()
     nfreqs = reference.adjust_freqs(np.bincount(x), False)

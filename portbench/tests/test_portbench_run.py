@@ -131,6 +131,9 @@ FAULTS = [("ansfold2-zipf125.read", _value_altered),
           ("ansfold2-zipf125.read-d32", _value_altered),
           ("ansfold2-zipf125.read-d32", _half_of_the_batch),
           ("ansfold2-zipf125.read", _unchanged),
+          ("multihost-zipf20.shard4", _value_altered),
+          ("multihost-zipf20.shard4", _half_of_the_batch),
+          ("multihost-zipf20.shard4", _unchanged),
           ("ansfold2-zipf125.write", _byte_altered),
           ("ansfold2-zipf125.write", _unchanged)]
 

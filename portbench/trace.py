@@ -32,16 +32,19 @@ BETWEEN = "host work between CUDA calls"
 TOP = 10
 
 
-def profiled(fn):
+def profiled(fn, read: bool = True):
     """(fn(), the summary of its trace, or None when the trace holds no
-    device work or there is no CUDA device to trace).  fn returns a
-    traffic.Window."""
+    device work, there is no CUDA device to trace, or `read` is false: a
+    rank traced only so that it runs as the rank that is read does).  fn
+    returns a traffic.Window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         return fn(), None
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         result = fn()
+    if not read:
+        return result, None
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
