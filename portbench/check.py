@@ -2,7 +2,8 @@
 
 The configuration's guarantee is lossless coding on the lane-format wire,
 so every number compared is a count of what differs from the plain
-reference (portbench/reference.py), held to the limit 0:
+reference (the reference side of the configuration's codec,
+portbench/manifest.py), held to the limit 0:
 
   * blob_bytes_wrong  bytes of the set-up's blobs of the checked arrays
                       that differ from the reference's blobs (plus the

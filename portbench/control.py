@@ -4,14 +4,15 @@ with the configuration's guarantee broken, read by the same comparison.
     python3 -m portbench.control --workload <cell> --seeds 1,2,3 [--n N]
 
 The configurations state no precision; they state lossless coding.  The
-control keeps only each value's high part (reference.lossy_values: the
-low bytes a byte fold strips are lost) and codes that with the plain
-reference: the blob it writes, the values its decode returns and the
-streams its encode returns stand where the program's would, and
-portbench/check.py judges them against the lossless reference of the
-input: the pool's first array, made on the device as a run makes it.  In
-a sharded cell, rank 0's shard of it, the model (the program's and the
-control's alike) from the counts of every rank's shard.
+control keeps only each value's high part (the codec's `lossy_values`;
+the lane codec's, reference.lossy_values, loses the low bytes a byte fold
+strips) and codes that with the codec's plain reference: the blob it
+writes, the values its decode returns and the streams its encode returns
+stand where the program's would, and portbench/check.py judges them
+against the lossless reference of the input: the pool's first array,
+made on the device as a run makes it.  In a sharded cell, rank 0's shard
+of it, the model (the program's and the control's alike) from the counts
+of every rank's shard.
 Each seed's numbers are printed beside their limits, then one JSON line
 with every seed's readings and the least of each (the upper reading the
 limits are set below).  The control must fail; the benchmark's own runs
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from . import check, inputs, manifest, ranks, reference
+from . import check, inputs, manifest, ranks
 
 
 def readings(cell, seed: int, device, n: int | None = None) -> dict:
@@ -37,6 +38,7 @@ def readings(cell, seed: int, device, n: int | None = None) -> dict:
     n = int(config["n"])
     method, lanes = config["method"], int(config["lanes"])
     sections = int(cell.mix.get("sections", 0))
+    reference = cell.codec.reference
     if cell.mix.get("shards"):
         per = -(-n // cell.chips)
         shards = [inputs.shard(config, seed, r, min(per, n - r * per),

@@ -1,5 +1,10 @@
 """The system under test: ans_tpu_torch's prepared calls, staged for a cell.
 
+`stage` and `decoded_values` are the program side of the codec `lane`
+(portbench/manifest.py); another codec's are in codecs/<codec>.py and
+return this module's `Staged`.  `join`, `local_slice` and
+`launch_counts` serve every codec.
+
 The set-up stages one prepared call for each array of the configuration's
 pool: for a decode mix it encodes the array once (the blob a user stores;
 its model-half seconds come from the program's own `utils.stats` record)

@@ -1,7 +1,11 @@
 """The plain reference of the benchmark: the lane-format blob (fmt 2) and the
 blocked container (ATFB v2) of an input, written again in NumPy and plain
 Python from docs/FORMAT.md sections 2-3 and the reference coder's model
-(include/ans_util.hpp, ans_fold.hpp, ans_int.hpp).
+(include/ans_util.hpp, ans_fold.hpp, ans_int.hpp).  `encode` and
+`lossy_values` are the reference side of the codec `lane`
+(portbench/manifest.py); another codec's reference side,
+references/<codec>.py, may build on this module's pieces (the model, the
+lanes, the interpolative code, the blobs).
 
 It imports nothing of the program under test and takes nothing it made:
 the benchmark hands it the same input values it hands the program, and it

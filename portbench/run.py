@@ -7,15 +7,16 @@ From the root of a checkout.  The cell, its configuration, its traffic
 mix and its metrics are found by name (portbench/manifest.py).  Set-up
 makes the configuration's pool of input arrays on the card from the seed
 (portbench/inputs.py), stages the mix's prepared call for each array with
-ans_tpu_torch (encoding it first for a read: the blob a user stores) and
-warms them up; the window then runs the closed loop for `--seconds`, a
-request on each array in turn (portbench/traffic.py), under
-torch.profiler with `--trace 1` (portbench/trace.py).  Once the window
-has closed and the peak memory is read, the program's state is freed:
-the outputs of a sample of the window's requests drawn from the seed are
-held to their inputs (reads) or to the plain reference's encoding of
-their arrays (writes), and the set-up's blobs of those arrays to the
-reference's (portbench/reference.py, portbench/check.py).
+the program side of the configuration's codec (encoding it first for a
+read: the blob a user stores) and warms them up; the window then runs the
+closed loop for `--seconds`, a request on each array in turn
+(portbench/traffic.py), under torch.profiler with `--trace 1`
+(portbench/trace.py).  Once the window has closed and the peak memory is
+read, the program's state is freed: the outputs of a sample of the
+window's requests drawn from the seed are held to their inputs (reads)
+or to the codec's plain reference's encoding of their arrays (writes),
+and the set-up's blobs of those arrays to the reference's (the codec's
+reference side, portbench/manifest.py; portbench/check.py).
 
 A cell of one chip runs in this process, on cuda:0.  A cell of P > 1
 chips runs as P ranks, one process a card, rank r on cuda:r (a rank that
@@ -123,12 +124,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     window opens."""
     import torch
 
-    from . import check, inputs, manifest, program, ranks, reference, traffic
+    from . import check, inputs, manifest, program, ranks, traffic
     from . import trace as tracing
 
     config = dict(cell.config, **({"n": n} if n else {}))
     n = int(config["n"])  # of the whole array, over every rank
-    mix = cell.mix
+    mix, codec = cell.mix, cell.codec
     shards = bool(mix.get("shards"))
     world, rank = ranks.world()
     say = log if world == 1 else (lambda *p: log(f"rank {rank}:", *p))
@@ -144,7 +145,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
         xs = inputs.make(config, seed, dev)
     n_here = len(xs[0])
     marks.append(time.perf_counter())
-    staged = program.stage(config, mix, xs, dev)
+    staged = codec.program.stage(config, mix, xs, dev)
     marks.append(time.perf_counter())
     traffic.warm_up(staged.calls, sync, SAMPLE)
     ranks.barrier()
@@ -187,7 +188,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     del staged
     kept = sorted(window.kept.items())
     if kind == "decode":
-        kept = [(i, program.decoded_values(out, n_here, sections))
+        kept = [(i, codec.program.decoded_values(out, n_here, sections))
                 for i, out in kept]
     window.kept = {}
     # the arrays the reference encodes again: for a read, that of the
@@ -199,8 +200,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     # builds it from the ranks' histograms, summed by the harness
     counts = (ranks.summed_counts([xs[arrays[0]]])
               if shards and arrays else None)
-    refs = {a: reference.encode(config["method"], xs[a],
-                                int(config["lanes"]), sections, counts)
+    refs = {a: codec.reference.encode(config["method"], xs[a],
+                                      int(config["lanes"]), sections, counts)
             for a in arrays}
     checks = check.blob([(blobs[a], refs[a].blob) for a in arrays], n_here)
     if kind == "decode":

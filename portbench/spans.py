@@ -6,8 +6,8 @@ trace's clock.
 
 From the root of a checkout, on a CUDA device: an operator's run of one
 cell, as portbench/run.py sets it up and times it (the pool drawn from the
-seed, program.stage, traffic.warm_up, the closed loop under a CUDA-only
-torch.profiler), with ans_tpu_torch's span recorder
+seed, the codec's `stage`, traffic.warm_up, the closed loop under a
+CUDA-only torch.profiler), with ans_tpu_torch's span recorder
 (`utils.stats.tracing()`) on over the set-up and the window when
 `--spans 1`.  It checks no output (portbench/run.py does).  Its last line
 of standard output is one JSON object: the window's requests and
@@ -394,7 +394,7 @@ def run_cell(cell, seed: int, seconds: float, spans: bool, device: str,
 
     from ans_tpu_torch.utils import stats
 
-    from . import inputs, program, run, traffic
+    from . import inputs, run, traffic
 
     config = dict(cell.config, **({"n": n} if n else {}))
     mix, dev = cell.mix, torch.device(device)
@@ -405,7 +405,7 @@ def run_cell(cell, seed: int, seconds: float, spans: bool, device: str,
         t = [time.perf_counter()]
         xs = inputs.make(config, seed, dev)
         t.append(time.perf_counter())
-        staged = program.stage(config, mix, xs, dev)
+        staged = cell.codec.program.stage(config, mix, xs, dev)
         t.append(time.perf_counter())
         traffic.warm_up(staged.calls, sync, run.SAMPLE)
         t.append(time.perf_counter())

@@ -2,6 +2,7 @@
 the inputs, the trace's reduction and the import ban."""
 
 import ast
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +26,23 @@ def _imports(path: Path) -> set:
     return names
 
 
+def _reference_side_imports(path: Path) -> set:
+    """What the reference side of a codec (references/<codec>.py) imports
+    beyond the standard library, NumPy and portbench/reference.py: whole
+    module names, and "relative" for an import by a relative name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level:
+            names.add("relative")
+        elif isinstance(node, ast.ImportFrom):
+            names |= ({f"portbench.{a.name}" for a in node.names}
+                      if node.module == "portbench" else {node.module})
+    return {m for m in names if m != "portbench.reference"
+            and m.split(".")[0] not in sys.stdlib_module_names | {"numpy"}}
+
+
 def test_no_jax_and_a_reference_free_of_the_program():
     for path in (ROOT / "portbench").rglob("*.py"):
         assert not _imports(path) & BANNED, path
@@ -32,8 +50,25 @@ def test_no_jax_and_a_reference_free_of_the_program():
     assert "ans_tpu_torch" not in BANNED
     assert _imports(ROOT / "portbench/reference.py") <= {
         "__future__", "math", "struct", "dataclasses", "numpy"}
+    # the reference side of every other codec
+    for path in (ROOT / "portbench/references").glob("*.py"):
+        assert not _reference_side_imports(path), path
     for name in ("check.py", "inputs.py", "manifest.py"):
         assert "ans_tpu_torch" not in _imports(ROOT / "portbench" / name)
+
+
+@pytest.mark.parametrize("line,found", [
+    ("import numpy as np\nfrom portbench import reference", set()),
+    ("import math, struct\nimport portbench.reference", set()),
+    ("from portbench import program, reference", {"portbench.program"}),
+    ("import torch", {"torch"}),
+    ("from ans_tpu_torch.models import pseudo_adaptive",
+     {"ans_tpu_torch.models"}),
+    ("from .. import reference", {"relative"})])
+def test_the_ban_on_a_codecs_reference_side(tmp_path, line, found):
+    path = tmp_path / "codec.py"
+    path.write_text(line + "\n")
+    assert _reference_side_imports(path) == found
 
 
 def _uniform_tail(n_head=2000, reps=40):
